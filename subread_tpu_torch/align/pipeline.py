@@ -1,20 +1,23 @@
-"""Single-end subread-align in PyTorch: port of subread_tpu/align/pipeline.py.
+"""subread-align in PyTorch, single-end and paired-end: port of
+subread_tpu/align/pipeline.py.
 
-The device steps (vote, scan-2 scoring and selection, the saturation
-rescue tiers) run as torch ops on the Aligner's device, with the hit
-gather in the CUDA kernel `ops.probe.probe_hits` on a card.  Each chunk is
-split into `batch_reads` sub-batches; `submit_batch` queues every
-sub-batch's work and `collect_batch` reads the results back, so the work of
+The device steps (vote, scan-2 scoring, single-end and paired-end
+selection, the saturation rescue tiers) run as torch ops on the Aligner's
+device, with the hit gather in the CUDA kernel `ops.probe.probe_hits` on a
+card.  Each chunk is split into `batch_reads` sub-batches;
+`submit_batch`/`submit_batch_pe` queue every sub-batch's work and
+`collect_batch`/`collect_batch_pe` read the results back, so the work of
 chunk N+1 is queued before chunk N is read.
 
-The host side of the single-end path (align_file, SAM emission, indel-event
-placement, multi-indel refinement) is a copy of the JAX package's, not an
-import: importing anything under subread_tpu.align loads JAX through that
-package's __init__, and the machine with the card has no JAX.  Only the
-imports changed, to subread_tpu's JAX-free modules.
+The host side (align_file, align_file_pe, SAM emission, indel-event
+placement, multi-indel refinement, the long-indel rescue for -I > 16) is a
+copy of the JAX package's, not an import: importing anything under
+subread_tpu.align loads JAX through that package's __init__, and the
+machine with the card has no JAX.  Only the imports changed, to
+subread_tpu's JAX-free modules and the port's own copies.
 
-Not ported here: paired-end, subjunc and junction detection, the long-indel
-rescue (-I > 16); the constructor refuses configurations that need them.
+Not ported here: subjunc and junction detection (--sv, --allJunctions);
+the constructor refuses configurations that need them.
 """
 
 from __future__ import annotations
@@ -47,11 +50,55 @@ PKV_CAP = 2048
 
 _U32_KEYS = ("pos", "alt_pos", "probe_kv")  # uint32 on the host
 
+# the narrowing the JAX pipeline applies to a result before the host reads
+# it (its _PACK_CAST): _select_pe leaves these at the candidate tables'
+# int32, and the host dict holds them as int16
+_PACK_CAST = {"mism": np.int16, "clip_l": np.int16, "clip_r": np.int16}
+
 
 def _host(key: str, t: torch.Tensor) -> np.ndarray:
     """A result tensor as the numpy array the JAX pipeline hands the host."""
     a = t.cpu().numpy()
     return a.astype(np.uint32) if key in _U32_KEYS else a
+
+
+def _host_part(res: dict) -> dict[str, np.ndarray]:
+    """One sub-batch's result on the host: every key but best_k, narrowed
+    by _PACK_CAST, and probe_kv only when some read is flagged for host
+    indel placement (indel != 0 or multi_indel): the flagged rows with the
+    rest SENTINEL, or the whole table past PKV_CAP flagged rows."""
+    d = {k: _host(k, v) for k, v in res.items()
+         if k not in ("probe_kv", "best_k")}
+    for k, dt in _PACK_CAST.items():
+        if k in d:
+            d[k] = d[k].astype(dt, copy=False)
+    if "probe_kv" in res:
+        flag = d["indel"] != 0
+        if "multi_indel" in d:
+            flag = flag | d["multi_indel"]
+        nf = int(flag.sum())
+        if nf > 0:
+            pkv = _host("probe_kv", res["probe_kv"])
+            d["probe_kv"] = pkv if nf > PKV_CAP else np.where(
+                flag[:, None], pkv, np.uint32(SENTINEL)
+            )
+    return d
+
+
+def _merge_parts(parts: list[dict], R: int, pkv_fill: int) -> dict:
+    """Concatenate the sub-batches' host dicts and cut to the R real reads;
+    sub-batches without probe_kv rows get rows of `pkv_fill` (the JAX
+    pipeline's single-end collect uses 0, its paired-end collect SENTINEL)."""
+    out = {k: np.concatenate([p[k] for p in parts])[:R]
+           for k in parts[0] if k != "probe_kv"}
+    have = [p["probe_kv"] for p in parts if "probe_kv" in p]
+    if have:
+        P = have[0].shape[1]
+        out["probe_kv"] = np.concatenate([
+            p.get("probe_kv", np.full((len(p["pos"]), P), pkv_fill, np.uint32))
+            for p in parts
+        ])[:R]
+    return out
 
 
 @dataclass
@@ -119,11 +166,6 @@ class Aligner:
             raise NotImplementedError(
                 "junction detection (subjunc, --sv, --allJunctions) is not "
                 "ported to subread_tpu_torch yet"
-            )
-        if cfg.max_indel > 16:
-            raise NotImplementedError(
-                "the long-indel rescue (-I > 16) is not ported to "
-                "subread_tpu_torch yet"
             )
         self.device = resolve_device(device)
         # index: a HashIndex or a list of position-range blocks (-M)
@@ -410,6 +452,318 @@ class Aligner:
         sc = self._score_candidates(codes, ambig, lens, v, uniform_len=uniform_len)
         return self._select_se(lens, sc)
 
+    def _select_pe(self, lens1, lens2, sc1, sc2, expected_tlen: int):
+        """Paired-end selection (see the JAX method for the reference's
+        semantics): scan-1 combos of the two ends' candidates weighted by
+        fragment distance, their top 3 as the anchor sets, scan-2 pair
+        scoring over the anchor pairs with the storage-order tie rule, the
+        break-even test, and single-end fallbacks when an end has no
+        successful realignment.  Returns one dict per mate, in the JAX
+        method's dtypes (mapq int32, n_anchors int8, cov_* int16, the
+        other fields the candidate tables' own), best_k included."""
+        cfg = self.cfg
+        R, K = sc1["votes_k"].shape
+        dev = lens1.device
+        v1, v2 = sc1["votes_k"], sc2["votes_k"]
+        p1, p2 = sc1["pos_k"], sc2["pos_k"]
+        ar = torch.arange(K, device=dev)
+
+        def tier_filter(v, p):
+            # the simple-list vote-tier gate: top 3 distinct vote values,
+            # within 2 of the end's max, votes >= min_second
+            has = (v >= cfg.min_votes_second) & (p != SENTINEL)
+            newval = torch.cat(
+                [torch.zeros_like(v[:, :1]), (v[:, 1:] != v[:, :-1]).to(v.dtype)],
+                dim=1,
+            )
+            tier = torch.cumsum(newval, 1)
+            return has & (tier <= 2) & (v >= v[:, :1] - 2)
+
+        val1, val2 = tier_filter(v1, p1), tier_filter(v2, p2)
+        starts = self.dev_index.contig_starts
+        cid1 = torch.searchsorted(starts, p1.contiguous(), right=True)
+        cid2 = torch.searchsorted(starts, p2.contiguous(), right=True)
+
+        P1, P2 = p1[:, :, None], p2[:, None, :]                 # int64
+        V1 = v1[:, :, None].to(torch.int32)
+        V2 = v2[:, None, :].to(torch.int32)
+        L1 = lens1[:, None, None].to(torch.int64)
+        L2 = lens2[:, None, None].to(torch.int64)
+        same = cid1[:, :, None] == cid2[:, None, :]
+        bothv = val1[:, :, None] & val2[:, None, :]
+
+        # scan-1 combos: every candidate pair weighted (V1+V2)*w
+        tl_vote = (P1 - P2).abs() + torch.where(P1 > P2, L1, L2)
+        pe_vote = same & (tl_vote >= cfg.min_fragment) & (
+            tl_vote <= cfg.max_fragment
+        )
+        eligible = bothv & (torch.maximum(V1, V2) >= cfg.min_votes) & (
+            pe_vote | (torch.minimum(V1, V2) >= cfg.min_votes)
+        )
+        w_vote = torch.where(pe_vote, 1300, torch.where(same, 1000, 800))
+        adjusted = torch.where(eligible, (V1 + V2) * w_vote, -1)
+        # top 3 combos by (weight, earlier k1-major entry): valid keys are
+        # unique, every invalid key is -1, and top_ok gates every use of an
+        # index, so the order topk gives tied -1 keys never matters
+        KK = K * K
+        flat_adj = adjusted.reshape(R, KK)
+        fidx = torch.arange(KK, device=dev)[None, :]
+        key = torch.where(flat_adj >= 0, flat_adj * KK + (KK - 1 - fidx), -1)
+        top_key, top_i = torch.topk(key, 3, dim=1)
+        top_ok = top_key >= 0
+        tk1, tk2 = top_i // K, top_i % K
+        any_combo = top_ok.any(1)
+
+        # per-end anchor sets: the top combos' candidates, else the
+        # single-end anchor rule
+        def combo_anchor(tk):
+            onehot = (ar[None, None, :] == tk[:, :, None]) & top_ok[:, :, None]
+            return onehot.any(1)
+
+        a1_se, _ = self._anchor_set(sc1, cfg.min_votes)
+        a2_se, _ = self._anchor_set(sc2, cfg.min_votes)
+        anchor1 = torch.where(any_combo[:, None], combo_anchor(tk1), a1_se)
+        anchor2 = torch.where(any_combo[:, None], combo_anchor(tk2), a2_se)
+
+        # MAPQ divisor: distinct anchor positions (at most 3), 0 when the
+        # end's best anchor has fewer than min_votes
+        earlier = ar[None, :, None] > ar[None, None, :]
+
+        def distinct_pos_count(anchor, pos):
+            eq = pos[:, :, None] == pos[:, None, :]
+            dup = (eq & earlier & anchor[:, None, :]).any(2) & anchor
+            return (anchor & ~dup).to(torch.int32).sum(1)
+
+        def n_anchors(anchor, pos, v):
+            n = torch.clamp(distinct_pos_count(anchor, pos), max=3)
+            vmax = torch.where(anchor, v, 0).amax(1)
+            return torch.where(vmax >= cfg.min_votes, n, 0)
+
+        n_anch1 = n_anchors(anchor1, p1, v1)
+        n_anch2 = n_anchors(anchor2, p2, v2)
+
+        # realignment success per candidate
+        def realigned(sc, anchor, lens):
+            mlim = applied_mismatch_limit(cfg.max_mismatches, lens)[:, None]
+            return anchor & (sc["mism_k"] <= mlim) & (sc["match_k"] >= 1)
+
+        ok1 = realigned(sc1, anchor1, lens1)
+        ok2 = realigned(sc2, anchor2, lens2)
+        has1, has2 = ok1.any(1), ok2.any(1)
+
+        # ---- scan-2 pair scoring over anchor pairs -----------------------
+        M1 = sc1["match_k"][:, :, None].to(torch.int32)
+        M2 = sc2["match_k"][:, None, :].to(torch.int32)
+        MM1 = sc1["mism_k"][:, :, None].to(torch.int32)
+        MM2 = sc2["mism_k"][:, None, :].to(torch.int32)
+
+        def spans(sc, lens):
+            # chromosomal span end (leading S + M + D) and deleted bases
+            ind = sc["indel_k"].to(torch.int64)
+            dele = torch.clamp(ind, min=0)
+            ins = torch.clamp(-ind, min=0)
+            end = (sc["pos_k"] + lens[:, None].to(torch.int64) - ins
+                   - sc["clip_r_k"].to(torch.int64) + dele)
+            return end, dele
+
+        end1, skip1 = spans(sc1, lens1)
+        end2, skip2 = spans(sc2, lens2)
+        tl2 = torch.maximum(end1[:, :, None], end2[:, None, :]) - torch.minimum(P1, P2)
+        sk = skip1[:, :, None] + skip2[:, None, :]
+        tl2 = torch.where(tl2 > sk, tl2 - sk, tl2)
+        pe2 = same & (tl2 >= cfg.min_fragment) & (tl2 <= cfg.max_fragment)
+        w2 = torch.where(pe2, 120, torch.where(same, 100, 80))
+        primary = (w2 * (M1 + M2)) * 1000 - MM1 - MM2
+        d_tl = (tl2 - expected_tlen).abs()
+        tl_sc = torch.where(pe2 & (d_tl <= 999), 999 - d_tl, 0)
+        if cfg.multi_best > 1:
+            tl_sc = torch.zeros_like(tl_sc)      # no TLEN preference with -B
+        pair_ok = ok1[:, :, None] & ok2[:, None, :]
+        primary = torch.where(pair_ok, primary, -1)
+
+        def storage_rank(tk, okc_all, pos):
+            # rank of each candidate in the per-end bigtable, stored in
+            # combo order with position dedup; 9 = not stored
+            BIGR = 9
+            rank = torch.full(pos.shape, BIGR, dtype=torch.int32, device=dev)
+            cursor = torch.zeros(pos.shape[0], dtype=torch.int32, device=dev)
+            seen = []
+            for c in range(tk.shape[1]):
+                kc, okc = tk[:, c], okc_all[:, c]
+                pc = torch.gather(pos, 1, kc[:, None])[:, 0]
+                dup = torch.zeros_like(okc)
+                for pp, oo in seen:
+                    dup = dup | ((pp == pc) & oo)
+                new = okc & ~dup
+                assign = (ar[None, :] == kc[:, None]) & new[:, None] & (rank == BIGR)
+                rank = torch.where(assign, cursor[:, None], rank)
+                cursor = cursor + new.to(torch.int32)
+                seen.append((pc, okc))
+            return rank
+
+        # bigtable storage order: among tied combos the last generated is
+        # stored first, so the top-3 columns are re-sorted by (score desc,
+        # generation desc) before ranking (the JAX method's default branch;
+        # its SUBREAD_PE_TIE_FWD switch is not ported)
+        score_c = top_key // KK
+        gen_c = (KK - 1) - (top_key % KK)
+        colkey = torch.where(top_ok, score_c * KK + gen_c, -1)
+        perm = torch.argsort(-colkey, dim=1, stable=True)
+        tk1_s, tk2_s = torch.gather(tk1, 1, perm), torch.gather(tk2, 1, perm)
+        ok_s = torch.gather(top_ok, 1, perm)
+        kcol = ar[None, :].to(torch.int32)
+        # single-end fallback anchors rank in candidate order
+        r1_rank = torch.where(any_combo[:, None], storage_rank(tk1_s, ok_s, p1), kcol)
+        r2_rank = torch.where(any_combo[:, None], storage_rank(tk2_s, ok_s, p2), kcol)
+        # lexicographic max of (primary, tl_sc), then the first pair in
+        # storage order
+        best_p = primary.reshape(R, KK).amax(1)
+        at_p = primary == best_p[:, None, None]
+        tl_m = torch.where(at_p, tl_sc, -1)
+        best_t = tl_m.reshape(R, KK).amax(1)
+        at_best = at_p & (tl_m == best_t[:, None, None])
+        rp = r1_rank[:, :, None] * 16 + r2_rank[:, None, :]
+        rp_m = torch.where(at_best, rp, 0x7FFF)
+        bi = torch.argmin(rp_m.reshape(R, KK), dim=1)  # first minimum, as JAX
+        bk1, bk2 = bi // K, bi % K
+        paired = has1 & has2 & (best_p >= 0)
+
+        # break-even: a distinct (pos, cigar) pair ties the best
+        def same_as_best(sc, kbest):
+            eqs = None
+            for f in ("pos_k", "strand_k", "indel_k", "split_k",
+                      "clip_l_k", "clip_r_k"):
+                e = sc[f] == torch.gather(sc[f], 1, kbest[:, None])
+                eqs = e if eqs is None else (eqs & e)
+            return eqs                                     # [R, K]
+
+        distinct = ~(same_as_best(sc1, bk1)[:, :, None]
+                     & same_as_best(sc2, bk2)[:, None, :])
+        n_eq = 1 + (at_best & distinct).reshape(R, KK).sum(1)
+        breakeven = paired & (n_eq > 1)
+
+        # ---- single-end fallbacks (one or both ends unexplained) ---------
+        def se_best(sc, ok):
+            score_m = torch.where(ok, sc["score_k"], -1)
+            kbest = torch.argmax(score_m, dim=1)
+            b_s = torch.gather(score_m, 1, kbest[:, None])
+            be = ((score_m == b_s) & ok & ~same_as_best(sc, kbest)).sum(1) > 0
+            return kbest, be
+
+        se_k1, se_be1 = se_best(sc1, ok1)
+        se_k2, se_be2 = se_best(sc2, ok2)
+        k1 = torch.where(paired, bk1, se_k1)
+        k2 = torch.where(paired, bk2, se_k2)
+        be1 = torch.where(paired, breakeven, se_be1)
+        be2 = torch.where(paired, breakeven, se_be2)
+
+        def pick(sc, kk, ok, has, n_anch, be):
+            take = lambda a: torch.gather(a, 1, kk[:, None])[:, 0]
+            b_mism, b_pos = take(sc["mism_k"]), take(sc["pos_k"])
+            b_cl, b_cr = take(sc["clip_l_k"]), take(sc["clip_r_k"])
+            b_strand, b_votes = take(sc["strand_k"]), take(sc["votes_k"])
+            mapped = take(ok) & has
+            mapq = torch.where(
+                be, 0,
+                cfg.mapq_unique // torch.clamp(
+                    n_anch + b_mism.to(torch.int32), min=1),
+            ).to(torch.int32)
+            if not cfg.report_multi_mapping:
+                mapped = mapped & ~be
+            cl_w = torch.where(mapped, b_cl, 0)
+            cr_w = torch.where(mapped, b_cr, 0)
+            out = dict(
+                clip_l=cl_w, clip_r=cr_w,
+                pos=torch.where(mapped, u32(b_pos + cl_w), b_pos),
+                strand=b_strand, indel=take(sc["indel_k"]),
+                split=take(sc["split_k"]), mism=b_mism, votes=b_votes,
+                mapped=mapped, multi=be, mapq=mapq,
+                n_anchors=n_anch.to(torch.int8),
+                cov_start=take(sc["cov_s_k"]).to(torch.int16),
+                cov_end=take(sc["cov_e_k"]).to(torch.int16),
+                best_k=kk.to(torch.int32),
+            )
+            # the chosen candidate's per-probe kv, of its own strand scan,
+            # and the multi-indel flag (gated by min_votes_second here)
+            pkv_k = sc["probe_kv_k"]
+            b_pkv2 = torch.gather(
+                pkv_k, 1, kk[:, None, None].expand(-1, 1, pkv_k.shape[2])
+            )[:, 0]
+            P0 = b_pkv2.shape[1] // 2
+            b_pkv = torch.where(b_strand[:, None] == 1, b_pkv2[:, P0:], b_pkv2[:, :P0])
+            anchored = (b_pos != SENTINEL) & (b_votes >= cfg.min_votes_second)
+            validp = (b_pkv != SENTINEL) & anchored[:, None]
+            delta = torch.where(validp, u32(b_pkv - b_pos[:, None]), SENTINEL)
+            ds = torch.sort(delta, dim=1).values
+            nvalid = validp.sum(1)
+            j = torch.arange(1, P0, device=dev)[None, :]
+            trans = (ds[:, 1:] != ds[:, :-1]) & (j < nvalid[:, None])
+            n_distinct = (nvalid > 0).to(torch.int64) + trans.sum(1)
+            out["multi_indel"] = (n_distinct >= 3) & anchored
+            out["probe_kv"] = b_pkv
+            return out
+
+        return (pick(sc1, k1, ok1, has1, n_anch1, be1),
+                pick(sc2, k2, ok2, has2, n_anch2, be2))
+
+    def _device_align_pe(self, c1, a1, l1, c2, a2, l2, ul1=None, ul2=None,
+                         rescue=False, vp=None):
+        """Paired-end votes, scan-2 scoring of both ends and pair selection
+        for one sub-batch, with the paired rescue fold unless `rescue`.
+        As in the JAX method, both ends vote against index block 0 only."""
+        cfg = self.cfg
+        if vp is None:
+            vp = self.rescue_vote_params if rescue else self.vote_params
+        # the reference's paired-end candidate lists are longer than a
+        # single-end top-K: at least 8 per end
+        if vp.top_k < 8:
+            vp = vp._replace(top_k=8)
+        blk = self.dev_index.blocks[0]
+
+        def vote(c, a, l, ul):
+            return vote_batch(
+                c, a, l, blk.bucket_start, blk.comb, blk.bucket_bits, vp,
+                static_len=ul, sub_base=blk.sub_base, sub_lo=blk.sub_lo,
+                sub_bits=blk.sub_bits, search_steps=blk.search_steps,
+            )
+
+        v1, v2 = vote(c1, a1, l1, ul1), vote(c2, a2, l2, ul2)
+        # both ends' candidate lists use min_votes_second; min_votes gates
+        # combos and anchors inside _select_pe
+        sc1 = self._score_candidates(c1, a1, l1, v1, cfg.min_votes_second, ul1)
+        sc2 = self._score_candidates(c2, a2, l2, v2, cfg.min_votes_second, ul2)
+        r1, r2 = self._select_pe(
+            l1, l2, sc1, sc2, (cfg.min_fragment + cfg.max_fragment) // 2
+        )
+        r1.pop("best_k")
+        r2.pop("best_k")
+        r1["saturated"] = v1.saturated
+        r2["saturated"] = v2.saturated
+        if not rescue and self.rescue_fold_cap:
+            r1, r2 = self._rescue_fold_pe(c1, a1, l1, c2, a2, l2, r1, r2, ul1, ul2)
+        return r1, r2
+
+    def _rescue_fold_pe(self, c1, a1, l1, c2, a2, l2, r1, r2, ul1, ul2):
+        """The paired rescue fold: pairs where either end saturated go
+        through each tier's wider pass (pair selection mixes both ends'
+        tables, so both records are rescattered); a pair stays flagged
+        between tiers while either end's tier vote re-saturated."""
+        r1["saturated"] = r1["saturated"] | r2["saturated"]
+        r2["saturated"] = r1["saturated"]
+        for vp, cap in self.rescue_tiers:
+            sat = r1["saturated"] | r2["saturated"]
+            rb = min(cap, c1.shape[0])
+            idx_r, valid_r, c1r, a1r, l1r = self._sat_compact(sat, c1, a1, l1, rb)
+            r1r, r2r = self._device_align_pe(
+                c1r, a1r, l1r, c2[idx_r], a2[idx_r], l2[idx_r],
+                ul1=ul1, ul2=ul2, rescue=True, vp=vp,
+            )
+            r1["saturated"] = sat
+            r2["saturated"] = sat
+            r1 = self._sat_scatter(r1, r1r, idx_r, valid_r)
+            r2 = self._sat_scatter(r2, r2r, idx_r, valid_r)
+        return r1, r2
+
     # --- host orchestration -------------------------------------------------
 
     def _pad_batch(self, batch: ReadBatch):
@@ -466,34 +820,33 @@ class Aligner:
         flagged for host indel placement, with the rows PKV_CAP describes
         and zero rows for sub-batches without flags."""
         pending, R, batch = state
-        parts = []
-        P = 0
-        for res in pending:
-            d = {k: _host(k, v) for k, v in res.items()
-                 if k not in ("probe_kv", "best_k")}
-            if "probe_kv" in res:
-                P = res["probe_kv"].shape[1]
-                flag = d["indel"] != 0
-                if "multi_indel" in d:
-                    flag = flag | d["multi_indel"]
-                nf = int(flag.sum())
-                if nf > 0:
-                    pkv = _host("probe_kv", res["probe_kv"])
-                    d["probe_kv"] = pkv if nf > PKV_CAP else np.where(
-                        flag[:, None], pkv, np.uint32(SENTINEL)
-                    )
-            parts.append(d)
-        out = {}
-        for key in parts[0]:
-            if key != "probe_kv":
-                out[key] = np.concatenate([p[key] for p in parts])[:R]
-        if any("probe_kv" in p for p in parts):
-            out["probe_kv"] = np.concatenate([
-                p.get("probe_kv", np.zeros((len(p["pos"]), P), np.uint32))
-                for p in parts
-            ])[:R]
+        out = _merge_parts([_host_part(res) for res in pending], R, 0)
         self._rescue_saturated(batch, out)
         return out
+
+    def _rescue_rows(self, batch: ReadBatch, ii: np.ndarray, RB: int):
+        """Rows `ii` of a batch padded to RB reads, on the device, for the
+        host rescue: (codes, ambig, lens, uniform length)."""
+        Lp = max(self.cfg.pad_read_len, batch.max_len)
+        codes = np.zeros((RB, Lp), np.uint8)
+        ambig = np.zeros((RB, Lp), bool)
+        lens = np.zeros(RB, np.int32)
+        codes[: len(ii), : batch.max_len] = batch.codes[ii]
+        ambig[: len(ii), : batch.max_len] = batch.ambig[ii]
+        lens[: len(ii)] = batch.lengths[ii]
+        return (*self._upload_reads(codes, ambig, lens),
+                uniform_length(lens[: len(ii)]))
+
+    def _escalate(self, align, still, n: int):
+        """align(vp) with the rescue vote parameters, then again with the
+        cluster window doubled (up to 256) while still(result) flags one of
+        the first n rows; returns the last result."""
+        vp = self.rescue_vote_params
+        res = align(vp)
+        while vp.window < 256 and still(res)[:n].any().item():
+            vp = vp._replace(window=min(vp.window * 2, 256))
+            res = align(vp)
+        return res
 
     def _rescue_saturated(self, batch: ReadBatch, out: dict) -> None:
         """Re-align the reads still saturated after the device tiers through
@@ -504,32 +857,19 @@ class Aligner:
             return
         idx = np.flatnonzero(sat)
         RB = min(self.cfg.batch_reads, 256)
-        Lp = max(self.cfg.pad_read_len, batch.max_len)
         if "probe_kv" in out:
             P = out["probe_kv"].shape[1]
         else:
             P = self.vote_params.total_subreads * max(self.index.index_gap, 1)
         for s in range(0, len(idx), RB):
             ii = idx[s : s + RB]
-            codes = np.zeros((RB, Lp), np.uint8)
-            ambig = np.zeros((RB, Lp), bool)
-            lens = np.zeros(RB, np.int32)
-            codes[: len(ii), : batch.max_len] = batch.codes[ii]
-            ambig[: len(ii), : batch.max_len] = batch.ambig[ii]
-            lens[: len(ii)] = batch.lengths[ii]
-            ul = uniform_length(lens[: len(ii)])
-            dc, da, dl = self._upload_reads(codes, ambig, lens)
-            vp = self.rescue_vote_params
-            res = self._device_align(
-                dc, da, dl, uniform_len=ul, rescue=True, vp=vp
-            )
-            while vp.window < 256:
-                if not res["saturated"][: len(ii)].any().item():
-                    break
-                vp = vp._replace(window=min(vp.window * 2, 256))
-                res = self._device_align(
+            dc, da, dl, ul = self._rescue_rows(batch, ii, RB)
+            res = self._escalate(
+                lambda vp: self._device_align(
                     dc, da, dl, uniform_len=ul, rescue=True, vp=vp
-                )
+                ),
+                lambda r: r["saturated"], len(ii),
+            )
             got_indel = False
             for k, v in res.items():
                 if k == "probe_kv":
@@ -545,6 +885,70 @@ class Aligner:
                         (len(out["pos"]), P), 0xFFFFFFFF, np.uint32
                     )
                 out["probe_kv"][ii] = _host("probe_kv", res["probe_kv"])[: len(ii)]
+
+    # --- paired-end host orchestration ---------------------------------------
+
+    def align_batch_pe(self, b1: ReadBatch, b2: ReadBatch):
+        return self.collect_batch_pe(self.submit_batch_pe(b1, b2))
+
+    def submit_batch_pe(self, b1: ReadBatch, b2: ReadBatch):
+        """Upload and queue every sub-batch of a chunk of pairs; nothing
+        here waits for the device."""
+        c1, a1, l1, R = self._pad_batch(b1)
+        c2, a2, l2, _ = self._pad_batch(b2)
+        ul1, ul2 = uniform_length(l1[:R]), uniform_length(l2[:R])
+        bs = self.cfg.batch_reads
+        pending = []
+        for j in range(len(l1) // bs):
+            sl = slice(j * bs, (j + 1) * bs)
+            m1 = self._upload_reads(c1[sl], a1[sl], l1[sl])
+            m2 = self._upload_reads(c2[sl], a2[sl], l2[sl])
+            pending.append(self._device_align_pe(*m1, *m2, ul1=ul1, ul2=ul2))
+        return pending, R, b1, b2
+
+    def collect_batch_pe(self, state):
+        """Read a chunk's paired results back as the two dicts the JAX
+        pipeline's collect_batch_pe gives the host: the same keys and numpy
+        dtypes (mism, clip_l, clip_r narrowed to int16), best_k left out,
+        probe_kv as collect_batch gives it but with SENTINEL rows for
+        sub-batches without flags; then the host paired rescue."""
+        pending, R, b1, b2 = state
+        out1, out2 = (
+            _merge_parts([_host_part(pair[m]) for pair in pending], R,
+                         0xFFFFFFFF)
+            for m in (0, 1)
+        )
+        self._rescue_saturated_pe(b1, b2, out1, out2)
+        return out1, out2
+
+    def _rescue_saturated_pe(self, b1, b2, out1: dict, out2: dict) -> None:
+        """Paired twin of _rescue_saturated: re-align the pairs where either
+        end is still saturated, with the same window escalation, and
+        overwrite every key of both records except probe_kv, which the JAX
+        pipeline's paired rescue leaves as the main pass wrote it."""
+        sat1, sat2 = out1.get("saturated"), out2.get("saturated")
+        if sat1 is None or sat2 is None:
+            return
+        sat = sat1 | sat2
+        if not sat.any():
+            return
+        idx = np.flatnonzero(sat)
+        RB = min(self.cfg.batch_reads, 256)
+        for s in range(0, len(idx), RB):
+            ii = idx[s : s + RB]
+            dc1, da1, dl1, ul1 = self._rescue_rows(b1, ii, RB)
+            dc2, da2, dl2, ul2 = self._rescue_rows(b2, ii, RB)
+            r1, r2 = self._escalate(
+                lambda vp: self._device_align_pe(
+                    dc1, da1, dl1, dc2, da2, dl2, ul1=ul1, ul2=ul2,
+                    rescue=True, vp=vp,
+                ),
+                lambda r: r[0]["saturated"] | r[1]["saturated"], len(ii),
+            )
+            for res, out in ((r1, out1), (r2, out2)):
+                for k, v in res.items():
+                    if k != "probe_kv" and k in out:
+                        out[k][ii] = _host(k, v)[: len(ii)]
 
     def _emit_sam(
         self,
@@ -863,6 +1267,479 @@ class Aligner:
                 )
             )
 
+    # The paired-end host methods below, _pe_record_fields to
+    # align_file_pe, and _calc_tlen_cigar are copies of the JAX package's
+    # (subread_tpu/align/pipeline.py), for the reason the module docstring
+    # gives; align_file_pe keeps only the non-junction body.
+
+    def _pe_record_fields(self, b1, b2, res1, res2):
+        """Vectorised per-record PE fields shared by the native formatter
+        and the python fallback emitter: FLAG/RNEXT/PNEXT/TLEN/proper-pair
+        semantics of the reference's calc_flags/calc_tlen
+        (core.c:1659-1683,1718)."""
+        g = self.genome
+        R = len(b1.names)
+        z = np.zeros(R, np.int32)
+
+        def prep(res, batch):
+            lin = res["pos"].astype(np.int64)
+            cidx, coff = g.linear_to_chro(lin)
+            ok = (
+                np.asarray(res["mapped"], bool)
+                & (coff >= 0) & (coff < g.lengths[cidx])
+            )
+            if not self.cfg.report_multi_mapping:
+                ok = ok & ~np.asarray(res["multi"], bool)
+            return cidx.astype(np.int32), coff.astype(np.int64), ok
+
+        c1, o1, ok1 = prep(res1, b1)
+        c2, o2, ok2 = prep(res2, b2)
+        L1 = b1.lengths.astype(np.int64)
+        L2 = b2.lengths.astype(np.int64)
+        s1 = np.asarray(res1["strand"], np.int32)
+        s2 = np.asarray(res2["strand"], np.int32)
+
+        # ---- calc_tlen (core.c:1718): signed fragment length from the
+        # smaller-POS record's CIGAR walk.  Exact closed form for our
+        # single-event CIGAR shapes [clS] aM [event] bM [crS]: in the
+        # reference walk S consumes BOTH chro and read cursors, so the
+        # first section boundary sits at POS + cl + a; if it reaches the
+        # larger record's head, TLEN = consumed_read + Pbig - section_end
+        # + L_larger, else the walk runs to the end (section_end =
+        # POS + Lsm - insertions + deletions + junction gap) and the
+        # never-hit fallback equals the end-boundary value.
+        def tlen_walk():
+            P1p = o1 + 1
+            P2p = o2 + 1
+            r1_small = P1p <= P2p
+            Ps = np.where(r1_small, P1p, P2p)
+            Pb = np.where(r1_small, P2p, P1p)
+            Lsm = np.where(r1_small, L1, L2)
+            Lbig = np.where(r1_small, L2, L1)
+            pick = lambda a1, a2: np.where(
+                r1_small, np.asarray(a1, np.int64), np.asarray(a2, np.int64)
+            )
+            ind_s = pick(res1["indel"], res2["indel"])
+            spl_s = pick(res1["split"], res2["split"])
+            cl_s = pick(res1.get("clip_l", z), res2.get("clip_l", z))
+            junc_s = pick(
+                res1.get("junc", z), res2.get("junc", z)
+            ).astype(bool)
+            gap_s = np.zeros(R, np.int64)
+            if "junc_gap" in res1:
+                gap_s = np.where(
+                    junc_s,
+                    pick(res1["junc_gap"], res2["junc_gap"]), 0,
+                )
+            has_event = (ind_s != 0) | (gap_s > 0)
+            ins = np.maximum(-ind_s, 0)
+            dele = np.maximum(ind_s, 0)
+            gap_dn = gap_s + dele
+            sec1_end = Ps + cl_s + spl_s
+            hit1 = has_event & (sec1_end >= Pb)
+            t_hit1 = (cl_s + spl_s) + (Pb - sec1_end) + Lbig
+            sec_final = Ps + Lsm - ins + gap_dn
+            t_final = Lsm + (Pb - sec_final) + Lbig
+            t = np.where(hit1, t_hit1, t_final)
+            t = np.where(P1p == P2p, np.maximum(L1, L2), t)
+            # multi-event CIGARs (host overrides) get the literal walk
+            for res_x, other_first in ((res1, True), (res2, False)):
+                ov = res_x.get("cigar_override") or {}
+                for i, cig in ov.items():
+                    if i >= R:
+                        continue
+                    small_is_x = (P1p[i] <= P2p[i]) == other_first
+                    if not small_is_x:
+                        continue
+                    t[i] = _calc_tlen_cigar(
+                        str(cig), int(Ps[i]), int(Pb[i]), int(Lbig[i]),
+                        int(Lsm[i]),
+                    )
+            # sign: smaller-POS record positive; tie -> R1's strand decides
+            tie = P1p == P2p
+            neg1 = np.where(tie, s1 == 1, P1p > P2p)
+            t1 = np.where(neg1, -t, t)
+            t2 = np.where(
+                tie, np.where(s1 == 1, t, -t), np.where(P2p > P1p, -t, t)
+            )
+            return t1.astype(np.int64), t2.astype(np.int64)
+
+        both = ok1 & ok2
+        samec = both & (c1 == c2)
+        t1_all, t2_all = tlen_walk()
+        t1 = np.where(samec, t1_all, 0)
+        t2 = np.where(samec, t2_all, 0)
+        # proper pair (calc_flags core.c:1659-1683): same chro, |TLEN| in
+        # [min,max], SAM strands opposite, forward read leftmost (fr)
+        tl_in = (np.abs(t1) >= self.cfg.min_fragment) & (
+            np.abs(t1) <= self.cfg.max_fragment
+        )
+        opp = s1 != s2
+        fwd_pos = np.where(s1 == 0, o1, o2)
+        rev_pos = np.where(s1 == 0, o2, o1)
+        arranged = fwd_pos <= rev_pos
+        proper = samec & tl_in & opp & arranged
+
+        def mate_arrays(res, batch, cidx, coff, ok, strand,
+                        mok, mcidx, mcoff, mstrand, L_self, L_mate, first,
+                        tlen_signed):
+            flags = np.full(R, samio.FLAG_PAIRED
+                            | (samio.FLAG_FIRST if first else samio.FLAG_SECOND),
+                            np.int32)
+            flags = np.where(ok, flags, flags | samio.FLAG_UNMAPPED)
+            flags = np.where(ok & (strand == 1),
+                             flags | samio.FLAG_REVERSE, flags)
+            flags = np.where(ok & proper, flags | samio.FLAG_PROPER_PAIR, flags)
+            flags = np.where(~mok, flags | samio.FLAG_MATE_UNMAPPED, flags)
+            # mate-reverse reflects the mate's strand even when this end is
+            # unmapped (reference flag 101/133 records)
+            flags = np.where(mok & (mstrand == 1),
+                             flags | samio.FLAG_MATE_REVERSE, flags)
+            # RNEXT/PNEXT (write_single_fragment core.c:2125-2136):
+            # mate unmapped → "*" / 0; both mapped same chro → "=";
+            # this end unmapped, mate mapped → mate chro NAME (the "*"
+            # pointer differs from the mate's)
+            rnext = np.where(
+                ~mok, -1,
+                np.where(ok & (cidx == mcidx), -2, mcidx),
+            ).astype(np.int32)
+            pnext = np.where(mok, mcoff + 1, 0).astype(np.int32)
+            tlen = np.where(both, tlen_signed, 0).astype(np.int64)
+            indel = np.where(ok, np.asarray(res["indel"], np.int32), 0)
+            split = np.asarray(res["split"], np.int32)
+            cl = np.where(ok, np.asarray(res.get("clip_l", z), np.int32), 0)
+            cr = np.where(ok, np.asarray(res.get("clip_r", z), np.int32), 0)
+            nm = np.asarray(res["mism"], np.int32) + np.abs(indel)
+            mapq = np.asarray(res["mapq"], np.int32)
+            junc = (
+                np.where(ok, np.asarray(res["junc_gap"], np.int32), 0)
+                if "junc_gap" in res else z
+            )
+            return flags, rnext, pnext, tlen, indel, split, cl, cr, nm, mapq, junc
+
+        m1 = mate_arrays(res1, b1, c1, o1, ok1, s1, ok2, c2, o2, s2,
+                         L1, L2, True, t1)
+        m2 = mate_arrays(res2, b2, c2, o2, ok2, s2, ok1, c1, o1, s1,
+                         L2, L1, False, t2)
+        return dict(c1=c1, o1=o1, ok1=ok1, c2=c2, o2=o2, ok2=ok2,
+                    m1=m1, m2=m2)
+
+    def _emit_sam_pe_native(self, writer, b1, b2, res1, res2,
+                            summary: AlignSummary,
+                            indel_events: dict | None = None) -> bool:
+        """Vectorised PE record emission through the native formatter
+        (mate columns added to format_sam_records); the python fallback
+        below formats the same shared fields."""
+        from subread_tpu import native
+
+        if native.get_lib() is None:
+            return False
+        # raw-bytes output needs a SAM text sink (BAM writers re-pack
+        # records; same gate as the SE fast path) and no RG tagging
+        if not isinstance(writer, samio.SamWriter) or self.cfg.rg_id:
+            return False
+        if res1.get("cigar_override") or res2.get("cigar_override"):
+            return False
+        g = self.genome
+        R = len(b1.names)
+        if R == 0:
+            return True
+        Lmax = max(b1.codes.shape[1], b2.codes.shape[1])
+        fl = self._pe_record_fields(b1, b2, res1, res2)
+        c1, o1, ok1 = fl["c1"], fl["o1"], fl["ok1"]
+        c2, o2, ok2 = fl["c2"], fl["o2"], fl["ok2"]
+        m1, m2 = fl["m1"], fl["m2"]
+
+        def interleave(a, b, dtype=None):
+            out = np.empty(2 * R, dtype or a.dtype)
+            out[0::2] = a
+            out[1::2] = b
+            return out
+
+        names = [None] * (2 * R)
+        names[0::2] = b1.names
+        names[1::2] = b2.names
+        codes = np.zeros((2 * R, Lmax), np.uint8)
+        quals = np.zeros((2 * R, Lmax), np.uint8)
+        codes[0::2, : b1.codes.shape[1]] = b1.codes
+        codes[1::2, : b2.codes.shape[1]] = b2.codes
+        quals[0::2, : b1.quals.shape[1]] = b1.quals
+        quals[1::2, : b2.quals.shape[1]] = b2.quals
+        lens = interleave(b1.lengths.astype(np.int32),
+                          b2.lengths.astype(np.int32))
+        okA = interleave(ok1.astype(np.uint8), ok2.astype(np.uint8))
+        suppress = None
+        if self.cfg.ignore_unmapped:
+            suppress = (okA == 0).astype(np.uint8)
+        # HI/NH whenever EITHER end of the fragment mapped
+        # (write_single_fragment core.c:2047)
+        any_ok = ok1 | ok2
+        hi = np.ones(2 * R, np.int32)
+        nh = interleave(any_ok.astype(np.int32), any_ok.astype(np.int32))
+        blob = native.format_sam_records(
+            names, codes, quals, lens,
+            interleave(m1[0], m2[0]),
+            interleave(c1, c2),
+            interleave((o1 + 1).astype(np.int32), (o2 + 1).astype(np.int32)),
+            interleave(m1[9], m2[9]),
+            interleave(m1[4], m2[4]),
+            interleave(m1[5], m2[5]),
+            interleave(m1[10], m2[10]),
+            interleave(m1[6], m2[6]), interleave(m1[7], m2[7]),
+            okA, interleave(m1[8], m2[8]),
+            g.names, suppress=suppress,
+            rnext_cidx=interleave(m1[1], m2[1]),
+            pnext=interleave(m1[2], m2[2]),
+            tlen=interleave(m1[3], m2[3]),
+            hi=hi, nh=nh,
+        )
+        if blob is None:
+            return False
+        writer.write_bytes(blob)
+        summary.total += 2 * R
+        n_ok = int(ok1.sum()) + int(ok2.sum())
+        summary.mapped += n_ok
+        summary.unmapped += 2 * R - n_ok
+        multi = int((np.asarray(res1["multi"], bool) & ok1).sum()) + int(
+            (np.asarray(res2["multi"], bool) & ok2).sum()
+        )
+        summary.multi += multi
+        summary.unique += n_ok - multi
+        summary.indels += int((ok1 & (m1[4] != 0)).sum()) + int(
+            (ok2 & (m2[4] != 0)).sum()
+        )
+        if indel_events is not None:
+            for (batch, res, cidx, coff, ok, ind) in (
+                (b1, res1, c1, o1, ok1, m1[4]), (b2, res2, c2, o2, ok2, m2[4]),
+            ):
+                done = res.get("_events_done") or ()
+                for i in np.flatnonzero(ok & (ind != 0)):
+                    if i in done:
+                        continue  # recorded by the event-placement pass
+                    iv = int(ind[i])
+                    sp = int(res["split"][i])
+                    L = int(batch.lengths[i])
+                    codes_i = batch.codes[i, :L]
+                    if int(res["strand"][i]):
+                        seq = dna.decode(dna.revcomp(codes_i))
+                    else:
+                        seq = dna.decode(codes_i)
+                    ins_seq = seq[sp : sp - iv] if iv < 0 else ""
+                    key = (int(cidx[i]), int(coff[i]) + sp - 1, iv)
+                    sup, prev = indel_events.get(key, (0, ins_seq))
+                    indel_events[key] = (sup + 1, prev)
+        return True
+
+    def _emit_sam_pe(self, writer, b1, b2, res1, res2, summary: AlignSummary,
+                     indel_events: dict | None = None):
+        if self._emit_sam_pe_native(writer, b1, b2, res1, res2, summary,
+                                    indel_events):
+            return
+        g = self.genome
+        fl = self._pe_record_fields(b1, b2, res1, res2)
+        for i, name in enumerate(b1.names):
+            recs = []
+            for mate, (batch, res, cidx, coff, ok, m) in enumerate(
+                (
+                    (b1, res1, fl["c1"], fl["o1"], fl["ok1"], fl["m1"]),
+                    (b2, res2, fl["c2"], fl["o2"], fl["ok2"], fl["m2"]),
+                )
+            ):
+                (flags_a, rnext_a, pnext_a, tlen_a, indel_a, split_a,
+                 cl_a, cr_a, nm_a, mapq_a, junc_a) = m
+                flag = int(flags_a[i])
+                L = int(batch.lengths[i])
+                seq_codes = batch.codes[i, :L]
+                qual = batch.quals[i, :L].tobytes().decode()
+                summary.total += 1
+                # RNEXT column (codes: -1 "*", -2 "=", else contig index);
+                # printed for unmapped ends too (core.c:2140-2164)
+                rn = int(rnext_a[i])
+                rnext = "*" if rn == -1 else ("=" if rn == -2 else g.names[rn])
+                pnext, tlen = int(pnext_a[i]), int(tlen_a[i])
+                # HI/NH whenever EITHER end of the fragment mapped
+                # (write_single_fragment core.c:2047)
+                any_ok = bool(fl["ok1"][i]) or bool(fl["ok2"][i])
+                hi_nh = ["HI:i:1", "NH:i:1"] if any_ok else []
+                if not ok[i]:
+                    summary.unmapped += 1
+                    if self.cfg.ignore_unmapped:
+                        continue
+                    recs.append(
+                        samio.SamRecord(name, flag, "*", 0, 0, "*",
+                                        rnext=rnext, pnext=pnext, tlen=tlen,
+                                        seq=dna.decode(seq_codes), qual=qual,
+                                        tags=hi_nh)
+                    )
+                    continue
+                summary.mapped += 1
+                if res["multi"][i]:
+                    summary.multi += 1
+                else:
+                    summary.unique += 1
+                if flag & samio.FLAG_REVERSE:
+                    seq = dna.decode(dna.revcomp(seq_codes))
+                    qual = qual[::-1]
+                else:
+                    seq = dna.decode(seq_codes)
+                indel = int(indel_a[i])
+                split = int(split_a[i])
+                cl, cr, gap = int(cl_a[i]), int(cr_a[i]), int(junc_a[i])
+                override = (res.get("cigar_override") or {}).get(i)
+                if override is not None:
+                    cigar = override[0]
+                elif gap > 0:
+                    cigar = (
+                        (f"{cl}S" if cl else "")
+                        + f"{split}M{gap}N{L - cl - split - cr}M"
+                        + (f"{cr}S" if cr else "")
+                    )
+                elif indel > 0:
+                    cigar = (
+                        (f"{cl}S" if cl else "")
+                        + f"{split - cl}M{indel}D{L - split - cr}M"
+                        + (f"{cr}S" if cr else "")
+                    )
+                elif indel < 0:
+                    cigar = (
+                        (f"{cl}S" if cl else "")
+                        + f"{split - cl}M{-indel}I{L - split + indel - cr}M"
+                        + (f"{cr}S" if cr else "")
+                    )
+                else:
+                    cigar = (
+                        (f"{cl}S" if cl else "")
+                        + f"{L - cl - cr}M"
+                        + (f"{cr}S" if cr else "")
+                    )
+                if indel != 0:
+                    summary.indels += 1
+                    if indel_events is not None and (
+                        i not in (res.get("_events_done") or ())
+                    ):
+                        ins_seq = seq[split : split - indel] if indel < 0 else ""
+                        key = (int(cidx[i]), int(coff[i]) + split - 1, indel)
+                        sup, prev = indel_events.get(key, (0, ins_seq))
+                        indel_events[key] = (sup + 1, prev)
+                recs.append(
+                    samio.SamRecord(
+                        name, flag, g.names[int(cidx[i])], int(coff[i]) + 1,
+                        int(mapq_a[i]), cigar, rnext=rnext, pnext=pnext,
+                        tlen=tlen, seq=seq, qual=qual,
+                        tags=hi_nh + [f"NM:i:{int(nm_a[i])}"],
+                    )
+                )
+            for r in recs:
+                writer.write(r)
+
+    def align_file_pe(
+        self, fq1: str, fq2: str, out_sam: str, chunk_reads: int = 1 << 20,
+        readers=None,
+    ) -> AlignSummary:
+        """Paired-end align_file: the non-junction body of the JAX
+        method (the constructor refuses junction detection).  Mate files
+        of different lengths raise ValueError where the JAX method
+        asserts."""
+        summary = AlignSummary()
+        rd1, rd2 = readers if readers else (FastqReader(fq1), FastqReader(fq2))
+        writer = samio.make_writer(
+            out_sam, self.genome.names, [int(x) for x in self.genome.lengths],
+            sam_output=self.cfg.sam_output or out_sam.endswith(".sam"),
+            sort_by_coordinates=self.cfg.sort_by_coordinates,
+            rg_id=self.cfg.rg_id, rg_extra=list(self.cfg.rg_extra) or None,
+        )
+        indel_events: dict = {}
+
+        def read_pair():
+            b1 = rd1.next_batch(chunk_reads, pad_to=self.cfg.pad_read_len)
+            b2 = rd2.next_batch(chunk_reads, pad_to=self.cfg.pad_read_len)
+            if b1 is None or b2 is None:
+                return None
+            if len(b1) != len(b2):
+                raise ValueError("mate files out of sync")
+            return b1, b2
+
+        try:
+            t0 = time.time()
+            pair = read_pair()
+            t_read = time.time() - t0
+            state = self.submit_batch_pe(*pair) if pair is not None else None
+            while pair is not None:
+                # depth-1 chunk pipeline (see align_file)
+                t0 = time.time()
+                nxt = read_pair()
+                t_read_next = time.time() - t0
+                nxt_state = self.submit_batch_pe(*nxt) if nxt is not None else None
+                t1 = time.time()
+                r1, r2 = self.collect_batch_pe(state)
+                # event-table indel placement per end (same shared-event
+                # rule as the SE path; see align_file)
+                from .indelevent import (
+                    propose_and_apply, rescue_clipped_with_events,
+                    rescue_unmapped_mates,
+                )
+
+                chunk_events: dict = {}
+                for (bb, rr) in ((pair[0], r1), (pair[1], r2)):
+                    if "probe_kv" not in rr:
+                        continue
+                    ev_new, ev_done = propose_and_apply(
+                        self.genome, bb, rr, self.cfg,
+                        anchor_mism_limit=self.cfg.max_mismatches,
+                        index_gap=self.index.index_gap,
+                    )
+                    if ev_done:
+                        rr["_events_done"] = set(ev_done)
+                    for (ss, elen), (sup, iseq) in ev_new.items():
+                        chunk_events[(int(ss), int(elen))] = (sup, iseq)
+                        ci_e, co_e = self.genome.linear_to_chro(
+                            np.asarray([ss], np.int64)
+                        )
+                        k_e = (int(ci_e[0]), int(co_e[0]), elen)
+                        s0, p0 = indel_events.get(k_e, (0, iseq))
+                        indel_events[k_e] = (s0 + sup, p0)
+                # record-carried events of BOTH ends also share: a
+                # mate clipped at its partner's indel boundary gets
+                # the event-crossing CIGAR (scan-2 explain_read over
+                # the shared event table, core-indel.c)
+                for (bb, rr) in ((pair[0], r1), (pair[1], r2)):
+                    ind = np.asarray(rr["indel"], np.int32)
+                    sel = np.flatnonzero(
+                        np.asarray(rr["mapped"], bool) & (ind != 0)
+                    )
+                    pos_a = np.asarray(rr["pos"], np.uint32)
+                    spl_a = np.asarray(rr["split"], np.int32)
+                    cl_a = np.asarray(rr.get("clip_l", np.zeros_like(ind)))
+                    for q in sel:
+                        # small side = last M base before the event
+                        ss = (
+                            int(pos_a[q]) + int(spl_a[q])
+                            - int(cl_a[q]) - 1
+                        )
+                        chunk_events.setdefault(
+                            (ss, int(ind[q])), (1, "")
+                        )
+                for (bb, rr) in ((pair[0], r1), (pair[1], r2)):
+                    rescue_clipped_with_events(
+                        self.genome, bb, rr, chunk_events,
+                        max_mismatches=self.cfg.max_mismatches,
+                    )
+                rescue_unmapped_mates(
+                    self.genome, pair[0], pair[1], r1, r2, self.cfg
+                )
+                t2 = time.time()
+                self._emit_sam_pe(writer, pair[0], pair[1], r1, r2, summary,
+                                  indel_events)
+                t3 = time.time()
+                summary.time_io += t_read + (t3 - t2)
+                summary.time_voting += t2 - t1
+                pair, state, t_read = nxt, nxt_state, t_read_next
+        finally:
+            rd1.close()
+            rd2.close()
+            writer.close()
+        write_indel_vcf(out_sam + ".indel.vcf", self.genome, indel_events)
+        return summary
 
     def align_file(
         self, fastq_path: str, out_sam: str, chunk_reads: int = 1 << 20,
@@ -936,6 +1813,27 @@ class Aligner:
                             res["mism"][i] = mm
                             if res["mapq"][i] <= 0:
                                 res["mapq"][i] = self.cfg.mapq_unique // (1 + mm)
+                if self.cfg.max_indel > 16:
+                    # iteration three: long indels via soft-clip re-anchoring
+                    from .longindel import rescue_long_indels
+
+                    if not hasattr(self, "_ins_piles"):
+                        self._ins_piles = {}
+                    ov2, ev2, _ = rescue_long_indels(
+                        self.genome, batch, res, self.cfg.max_indel,
+                        piles=self._ins_piles,
+                    )
+                    if ov2:
+                        cur = res.get("cigar_override") or {}
+                        for i, v_ in ov2.items():
+                            cur.setdefault(i, v_)
+                        res["cigar_override"] = cur
+                        res["mism"] = np.asarray(res["mism"], np.int32).copy()
+                        for i, (_c, mm, _nm) in ov2.items():
+                            res["mism"][i] = mm
+                        for k, (sup, ins) in ev2.items():
+                            s0, p0 = indel_events.get(k, (0, ins))
+                            indel_events[k] = (s0 + sup, p0)
                 t2 = time.time()
                 self._emit_sam(writer, batch, res, summary,
                                indel_events=indel_events)
@@ -946,8 +1844,52 @@ class Aligner:
         finally:
             reader.close()
             writer.close()
+        if getattr(self, "_ins_piles", None):
+            # cross-read reassembly of insertions longer than any single
+            # read's clip (finalise_long_insertions, core-indel.c:4389)
+            from .longindel import assemble_insertion_piles
+
+            for k, (sup, ins) in assemble_insertion_piles(
+                self.genome, self._ins_piles, self.cfg.max_indel
+            ).items():
+                s0, p0 = indel_events.get(k, (0, ins))
+                indel_events[k] = (s0 + sup, p0)
+            self._ins_piles = {}
         write_indel_vcf(out_sam + ".indel.vcf", self.genome, indel_events)
         return summary
+
+
+def _calc_tlen_cigar(cigar: str, Ps: int, Pb: int, Lbig: int,
+                     Lsm: int) -> int:
+    """Literal calc_tlen walk (core.c:1718) over a CIGAR string: S and M
+    consume chro+read, I consumes read, D/N consume chro; at every
+    I/D/N boundary and at the end, if section_end >= Pb the walk stops
+    with read_cursor + Pb - section_end + Lbig."""
+    chro = Ps
+    read = 0
+    section_end = 0
+    num = 0
+    ops = []
+    for ch in cigar:
+        if ch.isdigit():
+            num = num * 10 + ord(ch) - 48
+        else:
+            ops.append((num, ch))
+            num = 0
+    for j, (n, op) in enumerate(ops):
+        if op in "MS=X":
+            chro += n
+            read += n
+            section_end = chro
+        last = j == len(ops) - 1
+        if op in "NDI" or last:
+            if op in "ND":
+                chro += n
+            if section_end >= Pb:
+                return read + Pb - section_end + Lbig
+        if op == "I":
+            read += n
+    return Pb - section_end + Lbig + Lsm
 
 
 def refine_multi_indels(

@@ -6,8 +6,10 @@ exercised: several contigs, segmental duplications (forward and reverse
 copies, so repeat reads tie), tandem arrays of 20-60 copies (their 16-mer
 runs exceed the 16-wide probe window, so `HashIndex.max_run >= 16` and the
 saturation-rescue tiers exist) and runs of N.  Reads come from
-`subread_tpu.utils.simulate.simulate_reads` with errors and indels; a share
-of them get N bases, written as `N` in the FASTQ.
+`subread_tpu.utils.simulate.simulate_reads` with errors and indels, single
+or paired; a share of them get N bases, written as `N` in the FASTQ.
+`synthetic_long_indel_reads` makes reads across planted 20-40 base
+deletions and 20 base insertions.
 """
 
 from __future__ import annotations
@@ -90,23 +92,90 @@ def synthetic_reads(
         genome, n_reads, read_len=read_len, rng=rng, error_rate=error_rate,
         indel_rate=indel_rate, max_indel=5,
     )
+    return _with_n(batch, rng, n_read_frac, read_len)
+
+
+def synthetic_pairs(
+    genome: Genome,
+    n_pairs: int,
+    seed: int = 1,
+    read_len: int = 100,
+    error_rate: float = 0.01,
+    indel_rate: float = 0.05,
+    n_read_frac: float = 0.02,
+) -> tuple[ReadBatch, ReadBatch]:
+    """Paired `simulate_reads` output (fragments of 150-500 bases, mate 2
+    the reverse strand at the fragment's far end, an indel 20-80 bases
+    into the fragment), with N bases as in `synthetic_reads` in either
+    mate.  Both batches are exactly what FastqReader parses from the
+    files `write_fastq` makes of them with no suffix."""
+    rng = np.random.default_rng(seed)
+    b1, b2 = simulate_reads(
+        genome, n_pairs, read_len=read_len, rng=rng, error_rate=error_rate,
+        indel_rate=indel_rate, max_indel=5, paired=True,
+        fragment_range=(150, 500),
+    )
+    return (_with_n(b1, rng, n_read_frac, read_len),
+            _with_n(b2, rng, n_read_frac, read_len))
+
+
+def synthetic_long_indel_reads(
+    genome: Genome,
+    n_sites: int = 6,
+    n_sim: int = 300,
+    seed: int = 77,
+    read_len: int = 100,
+) -> ReadBatch:
+    """Reads for the long-indel rescue (-I > 16): at each of `n_sites`
+    random places, reads across a deletion of 20, 30 and 40 bases (the
+    breakpoint at read offsets 25-75) and across a random 20-base
+    insertion (offsets 25-65); then `n_sim` simulated reads, a third of
+    them with an indel of 1-30 bases.  Exact bases, no N."""
+    rng = np.random.default_rng(seed)
+    g, L = genome.codes, read_len
+    names, seqs = [], []
+    for _ in range(n_sites):
+        c = int(rng.integers(0, len(genome.names)))
+        at = int(rng.integers(1000, int(genome.lengths[c]) - 2000))
+        for D in (20, 30, 40):
+            for x in range(25, L - 24, 10):
+                lin = genome.chro_to_linear(c, at - x)
+                r = np.concatenate([g[lin: lin + x], g[lin + x + D: lin + D + L]])
+                names.append(f"del{D}_{genome.names[c]}_{at}_{x}")
+                seqs.append(dna.decode(r).encode())
+        for x in range(25, L - 34, 10):
+            lin = genome.chro_to_linear(c, at + 500 - x)
+            ins = rng.integers(0, 4, 20).astype(np.uint8)
+            r = np.concatenate([g[lin: lin + x], ins, g[lin + x: lin + L - 20]])
+            names.append(f"ins20_{genome.names[c]}_{at + 500}_{x}")
+            seqs.append(dna.decode(r).encode())
+    sim, _ = simulate_reads(genome, n_sim, read_len=L, rng=rng,
+                            error_rate=0.01, indel_rate=0.33, max_indel=30)
+    names += list(sim.names)
+    seqs += [dna.decode(c).encode() for c in sim.codes]
+    return batch_from_records(names, seqs, [b"I" * L] * len(names), pad_to=L)
+
+
+def _with_n(batch: ReadBatch, rng, n_read_frac: float, read_len: int) -> ReadBatch:
+    """The batch with 1-3 bases of `n_read_frac` of its reads turned to N."""
     seqs = []
-    for i in range(n_reads):
+    for i in range(len(batch)):
         s = bytearray(dna.decode(batch.codes[i, : batch.lengths[i]]).encode())
         if rng.random() < n_read_frac:
             for j in rng.integers(0, len(s), size=int(rng.integers(1, 4))):
                 s[int(j)] = ord("N")
         seqs.append(bytes(s))
-    quals = [bytes(batch.quals[i, : batch.lengths[i]]) for i in range(n_reads)]
+    quals = [bytes(batch.quals[i, : batch.lengths[i]]) for i in range(len(batch))]
     return batch_from_records(batch.names, seqs, quals, pad_to=read_len)
 
 
-def write_fastq(path: str, batch: ReadBatch) -> None:
-    """FASTQ of a batch, with N where the ambiguity mask is set."""
+def write_fastq(path: str, batch: ReadBatch, suffix: str = "") -> None:
+    """FASTQ of a batch, with N where the ambiguity mask is set and
+    `suffix` (e.g. "/1", "/2") after every read name."""
     with open(path, "w") as f:
         for i, name in enumerate(batch.names):
             L = int(batch.lengths[i])
             seq = dna.CODE2BASE[batch.codes[i, :L] & 3].copy()
             seq[batch.ambig[i, :L]] = ord("N")
             q = batch.quals[i, :L].tobytes().decode()
-            f.write(f"@{name}\n{seq.tobytes().decode()}\n+\n{q}\n")
+            f.write(f"@{name}{suffix}\n{seq.tobytes().decode()}\n+\n{q}\n")

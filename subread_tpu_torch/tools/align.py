@@ -1,11 +1,12 @@
-"""subread-align (single-end) on the PyTorch port.
+"""subread-align on the PyTorch port, single-end or paired-end.
 
     python -m subread_tpu_torch.tools.align -t 1 -i <prefix> -r reads.fq -o out.sam
+    python -m subread_tpu_torch.tools.align -t 1 -i <prefix> -r r1.fq -R r2.fq -o out.sam
 
 Takes subread_tpu's option set (`subread_tpu.tools.align.build_parser`,
 which imports no JAX) plus `--device` (default `cuda`, which must be
-present: there is no fall-back to the CPU).  Paired-end input, the
-subjunc-only exon annotation and --sv/--longDel are not ported yet and are
+present: there is no fall-back to the CPU).  The exon annotation (-a) and
+--sv/--longDel, which need junction detection, are not ported yet and are
 refused with an error.
 """
 
@@ -35,10 +36,6 @@ def config_from_args(args):
     (subread_tpu/tools/align.py:172-223); raises for what is not ported."""
     from subread_tpu.config import aligner_config
 
-    if args.reads2:
-        raise NotImplementedError(
-            "paired-end (-R) is not ported to subread_tpu_torch yet"
-        )
     if args.sv or args.longDel or args.SVdetection:
         raise NotImplementedError(
             "--sv/--longDel/--SVdetection are not ported to subread_tpu_torch yet"
@@ -90,14 +87,18 @@ def config_from_args(args):
     return aligner_config(**overrides)
 
 
+def read_format(args) -> str | None:
+    """The input format run_align reads: SAM, BAM, or None for FASTQ/FASTA."""
+    return "SAM" if args.SAMinput else (
+        "BAM" if (args.BAMinput or args.scRNA_BAMinput) else None
+    )
+
+
 def open_reader(args):
     """The read source run_align opens for single-end input."""
     from subread_tpu.io.fastq import make_trim_transform, open_read_source
 
     tf = make_trim_transform(args.trim5, args.trim3, args.color_convert)
-    fmt = "SAM" if args.SAMinput else (
-        "BAM" if (args.BAMinput or args.scRNA_BAMinput) else None
-    )
     if args.scRNA_FQinput:
         from subread_tpu.io.scrna import ScRNAFastqReader
 
@@ -106,7 +107,22 @@ def open_reader(args):
         from subread_tpu.io.scrna import BCLReadReader
 
         return BCLReadReader(args.reads, transform=tf)
-    return open_read_source(args.reads, fmt, transform=tf)
+    return open_read_source(args.reads, read_format(args), transform=tf)
+
+
+def open_readers_pe(args):
+    """The two mates' read sources, as subread_tpu's run_align opens them
+    (subread_tpu/tools/align.py:260-267): one SAM/BAM given to both -r and
+    -R is split by the first/second-in-pair flags."""
+    from subread_tpu.io.fastq import make_trim_transform, open_read_source
+
+    tf = make_trim_transform(args.trim5, args.trim3, args.color_convert)
+    fmt = read_format(args)
+    mates = (0, 1) if (fmt and args.reads2 == args.reads) else (None, None)
+    return (
+        open_read_source(args.reads, fmt, transform=tf, mate=mates[0]),
+        open_read_source(args.reads2, fmt, transform=tf, mate=mates[1]),
+    )
 
 
 def run_align(args) -> dict:
@@ -122,7 +138,16 @@ def run_align(args) -> dict:
     t1 = time.time()
     aligner = Aligner(genome, index, cfg, device=device)
     t2 = time.time()
-    summary = aligner.align_file(args.reads, args.output, reader=open_reader(args))
+    if getattr(args, "pairedSAM", False) and read_format(args) and not args.reads2:
+        args.reads2 = args.reads    # --pairedSAM: one SAM/BAM holds both mates
+    if args.reads2:
+        summary = aligner.align_file_pe(
+            args.reads, args.reads2, args.output, readers=open_readers_pe(args)
+        )
+    else:
+        summary = aligner.align_file(
+            args.reads, args.output, reader=open_reader(args)
+        )
     t3 = time.time()
     d = summary.as_dict()
     d.update(time_load=t1 - t0, time_upload=t2 - t1, time_align=t3 - t2)

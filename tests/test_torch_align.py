@@ -200,13 +200,16 @@ def test_cli_matches_jax(jax_run):
 def test_unported_options_raise(genome, index):
     from dataclasses import replace
 
-    for extra in (["-R", "r2.fq"], ["--sv"], ["--longDel"], ["-a", "x.gtf"]):
+    for extra in (["--sv"], ["--longDel"], ["-a", "x.gtf"]):
         with pytest.raises(NotImplementedError):
             cli_config(*extra)
-    for cfg in (cli_config("-I", "20"),
-                replace(cli_config(), detect_junctions=True)):
-        with pytest.raises(NotImplementedError):
-            Aligner(genome, index, cfg, device="cpu")
+    with pytest.raises(NotImplementedError):
+        Aligner(genome, index, replace(cli_config(), detect_junctions=True),
+                device="cpu")
+    # paired-end input and the long-indel rescue (-I > 16) are ported
+    assert cli_config("-R", "r2.fq").max_indel == 5
+    al = Aligner(genome, index, cli_config("-I", "20"), device="cpu")
+    assert al.vote_params.indel_tolerance == 16
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             Aligner(genome, index, cli_config(), device="cuda")

@@ -1,6 +1,7 @@
 """subread_tpu_torch must run where JAX is not installed (the machine with
 the card has none): in a subprocess where `import jax` fails, import every
-module of the port and align 64 reads on the CPU through the CLI."""
+module of the port and align 64 reads, then 64 pairs (-R), on the CPU
+through the CLI."""
 
 import os
 import subprocess
@@ -18,22 +19,29 @@ mods = [m.name for m in pkgutil.walk_packages(
 for name in mods:
     importlib.import_module(name)
 from subread_tpu.index.build import build_hash_index
-from subread_tpu_torch.synth import synthetic_genome, synthetic_reads, write_fastq
+from subread_tpu_torch.synth import (
+    synthetic_genome, synthetic_pairs, synthetic_reads, write_fastq)
 from subread_tpu_torch.tools import align
 d = tempfile.mkdtemp()
+p = lambda name: os.path.join(d, name)
 g = synthetic_genome(60_000, seed=2)
-g.save(os.path.join(d, "idx"))
-build_hash_index(g, index_gap=3).save(os.path.join(d, "idx"))
-write_fastq(os.path.join(d, "r.fq"), synthetic_reads(g, 64, seed=3))
-align.main(["-t", "1", "-i", os.path.join(d, "idx"), "-r",
-            os.path.join(d, "r.fq"), "-o", os.path.join(d, "o.sam"),
-            "--device", "cpu"])
-recs = [l for l in open(os.path.join(d, "o.sam")) if not l.startswith("@")]
+g.save(p("idx"))
+build_hash_index(g, index_gap=3).save(p("idx"))
+write_fastq(p("r.fq"), synthetic_reads(g, 64, seed=3))
+b1, b2 = synthetic_pairs(g, 64, seed=4)
+write_fastq(p("r1.fq"), b1)
+write_fastq(p("r2.fq"), b2)
+base = ["-t", "1", "-i", p("idx"), "--device", "cpu"]
+align.main(base + ["-r", p("r.fq"), "-o", p("o.sam")])
+align.main(base + ["-r", p("r1.fq"), "-R", p("r2.fq"), "-o", p("pe.sam")])
+recs = [l for l in open(p("o.sam")) if not l.startswith("@")]
+pe = [l for l in open(p("pe.sam")) if not l.startswith("@")]
 loaded = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith(("jax.", "subread_tpu.align",
                                                "subread_tpu.ops")))
-print(len(mods), len(recs), sum(1 for r in recs if int(r.split()[1]) & 4 == 0),
-      loaded)
+mapped = lambda rs: sum(1 for r in rs if int(r.split()[1]) & 4 == 0)
+print(len(mods), len(recs), mapped(recs), len(pe), mapped(pe),
+      sum(1 for r in pe if int(r.split()[1]) & 2), loaded)
 """
 
 
@@ -43,9 +51,12 @@ def test_port_imports_and_aligns_without_jax():
         timeout=300, cwd=REPO, env={**os.environ, "OMP_NUM_THREADS": "1"},
     )
     assert proc.returncode == 0, proc.stderr
-    n_mods, n_recs, n_mapped, loaded = proc.stdout.split(maxsplit=3)
-    assert int(n_mods) >= 12
+    n_mods, n_recs, n_mapped, n_pe, n_pe_mapped, n_proper, loaded = (
+        proc.stdout.split(maxsplit=6))
+    assert int(n_mods) >= 13
     assert int(n_recs) == 64 and int(n_mapped) >= 50
+    assert int(n_pe) == 128 and int(n_pe_mapped) >= 100
+    assert int(n_proper) >= 90
     # only the placeholder this script planted: nothing imported JAX or
     # the JAX package's device modules
     assert loaded.strip() == "['jax']"
