@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (subread_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--genome-mb 100] [--reads 200000] [--pairs 100000]
+                          [--spliced-reads 100000] [--spliced-pairs 50000]
                           [--seed 7]
 
 Phases; each one passes or ends the run with a non-zero exit:
@@ -38,14 +39,37 @@ Phases; each one passes or ends the run with a non-zero exit:
      records and .indel.vcf;
   7. the long-indel rescue (-I 60) on reads across planted 20-40 base
      deletions and 20 base insertions, on the CPU and on the card:
-     identical records, with long D and I CIGARs among them.
+     identical records, with long D and I CIGARs among them;
+  8. subjunc, single-end, through the CLI (run_align with subjunc's
+     defaults, what `python -m subread_tpu_torch.tools.subjunc ... --device
+     cuda` runs) on spliced 100 bp reads (introns at the genome's own
+     GT..AG and CT..AC sites, short flanks, two-intron reads, 2% chimeras;
+     subread_tpu_torch.synth): one primary record per read, the mapped
+     fraction, the share of reads across planted introns whose CIGAR has
+     each of them as an N at its planted edges, the .junction.bed's recall
+     and precision against the planted junctions, the kernel launched; then,
+     on an aligner with the run's options and one sub-batch of its reads,
+     the kernel against its plain version at subjunc's shapes (8192 reads
+     x 28 probes, H=16, and the tiers' wide shapes), as in phase 2, and
+     `_select_se_junc`, the whole `_device_align` and one
+     `rescue_with_events` call against the run's junction table, each
+     timed by CUDA events and by the host's clock;
+  9. subjunc, paired-end, with --allJunctions on spliced pairs: the same
+     checks per mate, the proper-pair fraction, and the share of planted
+     fusions that .breakpoints.vcf holds;
+ 10. subjunc with --allJunctions and -a (a GTF of planted junctions) on the
+     first 8192 spliced reads and 4096 spliced pairs, on the CPU and on the
+     card: identical SAM records, .junction.bed, .breakpoints.vcf and
+     .indel.vcf.
 
-Every path's kernel launches are counted from 0 just before it is driven
-and read just after; the counts are printed on one line.  It prints the
-card's `nvidia-smi --query-gpu=name,power.limit` line and a JSON line
-describing the kernel, whose launches are those of the two main paths
-(phases 3 and 5), then as its last line {"ok": true, "device": {...}}.
-With no card it exits non-zero at once.
+The thresholds of phases 8 and 9 come from a CPU run of the JAX package on
+the same seeds at a small size (PERF.md).  Every path's kernel launches are
+counted from 0 just before it is driven and read just after; the counts
+are printed on one line.  It prints the card's `nvidia-smi
+--query-gpu=name,power.limit` line and a JSON line describing the kernel,
+whose launches are those of the four main paths (phases 3, 5, 8 and 9),
+then as its last line {"ok": true, "device": {...}}.  With no card it
+exits non-zero at once.
 """
 
 from __future__ import annotations
@@ -54,7 +78,6 @@ import argparse
 import json
 import re
 import shutil
-import statistics
 import subprocess
 import sys
 import time
@@ -63,6 +86,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 KERNEL_SOURCE = "subread_tpu_torch/csrc/probe_hits.cu"
 KERNEL_REPLACES = "subread_tpu/ops/pallas_probe.py:36"
+# lower bounds of phases 8 (subjunc) and 9 (paired subjunc, --allJunctions),
+# set below the JAX package's figures on the same seeds (PERF.md)
+SUBJUNC_MIN = dict(mapped=0.9, spliced_share=0.8, recall=0.9, precision=0.9)
+SUBJUNC_PE_MIN = dict(mapped=0.9, proper=0.4, spliced_share=0.8, recall=0.9,
+                      precision=0.9, fusions=0.6)
 
 
 def fail(msg: str) -> None:
@@ -80,31 +108,46 @@ def sh(*cmd: str) -> str:
     ).stdout.strip()
 
 
-def timed_ms(fn, n: int = 20) -> tuple[float, float]:
-    """Medians of n timings of fn(), after one warm-up call, each call
-    timed both ways: CUDA events around it on the card, and the host's
-    clock from a synchronised start to the synchronise after it."""
+def kernel_against_plain(phase, al, batch, vp, shapes):
+    """probe_hits against its plain version on the card, on the probes the
+    vote with VoteParams vp builds from the uploaded reads batch (codes,
+    ambig, lengths), on the Aligner's first index block: for each (name,
+    rows, probes, H, shared_off) of shapes, the first rows x probes of
+    them, with offsets per probe ([P], as a static-length vote gives them)
+    or per read ([R, P]).  Bit-equal (tolerance 0) or the run fails.
+    Returns each shape's (kernel, plain) medians of 20 CUDA-event timings
+    and the largest |kernel - plain|."""
     import torch
+    from subread_tpu_torch.ops import probe
+    from subread_tpu_torch.ops.vote import probe_inputs
+    from subread_tpu_torch.timing import stage_ms
 
-    fn()
-    ev, wall = [], []
-    for _ in range(n):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
+    blk = al.dev_index.blocks[0]
+    keys, valid, orient, own, _ = probe_inputs(*batch, vp, 100)
+    own_rp = own[None, :].expand(keys.shape[0], -1)
+    ix = (blk.bucket_start, blk.comb, blk.sub_base, blk.sub_lo,
+          blk.bucket_bits, blk.sub_bits, blk.search_steps)
+    timings, max_err = {}, 0
+    for name, r, p, H, shared_off in shapes:
+        p = keys.shape[1] if p is None else p
+        a = (keys[:r, :p].contiguous(), valid[:r, :p].contiguous(),
+             orient[:r, :p].contiguous(),
+             own[:p].contiguous() if shared_off else own_rp[:r, :p].contiguous())
+        kv_k, tr_k = probe.probe_hits(*a, *ix, H)
+        kv_r, tr_r = probe.probe_hits_reference(*a, *ix, H)
         torch.cuda.synchronize()
-        t = time.perf_counter()
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        wall.append((time.perf_counter() - t) * 1e3)
-        ev.append(a.elapsed_time(b))
-    return statistics.median(ev), statistics.median(wall)
-
-
-def cuda_ms(fn, n: int = 20) -> float:
-    """Median of n CUDA-event timings of fn(), after one warm-up call."""
-    return timed_ms(fn, n)[0]
+        err = int((kv_k - kv_r).abs().max().item()) if kv_k.numel() else 0
+        max_err = max(max_err, err)
+        check(torch.equal(kv_k, kv_r) and torch.equal(tr_k, tr_r),
+              f"probe_hits kernel differs from plain at {name} (max |err| {err})")
+        ms_k = stage_ms(lambda: probe.probe_hits(*a, *ix, H))[0]
+        ms_r = stage_ms(lambda: probe.probe_hits_reference(*a, *ix, H))[0]
+        timings[name] = (ms_k, ms_r)
+        hits = int((kv_k != 0xFFFFFFFF).sum().item())
+        print(f"{phase}: {name} [{r} x {p}] H={H}: bit-equal (tolerance 0), "
+              f"{hits} hits, {int(tr_k.sum().item())} truncated; kernel "
+              f"{ms_k:.4f} ms, plain {ms_r:.4f} ms, plain/kernel {ms_r / ms_k:.2f}")
+    return timings, max_err
 
 
 def sam_records(path: Path) -> list[str]:
@@ -136,11 +179,128 @@ def cpu_cuda_agree(phase: str, run, n: int) -> None:
           f"SAM records and the .indel.vcf")
 
 
+def steps_line(secs: dict) -> str:
+    return ", ".join(f"{n} {t:.2f}s" for n, t in secs.items())
+
+
+JUNCTION_STEPS = ("rescue_with_events", "_junction_rescue_step",
+                  "chain_clipped_junctions")
+
+
+def cigar_junctions(contig: str, pos1: int, cigar: str) -> set:
+    """(contig, left_edge0, right_edge0) of each N of a CIGAR placed at the
+    1-based pos1: the 0-based last base before the intron and first after."""
+    out, ref = set(), pos1 - 1
+    for n, op in re.findall(r"(\d+)([MIDNSHP=X])", cigar):
+        if op == "N":
+            out.add((contig, ref - 1, ref + int(n)))
+        if op in "MDN=X":
+            ref += int(n)
+    return out
+
+
+def truth_junctions(name: str, mate: int) -> set:
+    """The planted introns a spliced read (or mate 1 / 2 of a spliced pair)
+    crosses, from the truth its name records (synth.synthetic_spliced_*)."""
+    f = name.split("_")
+    if f[0].startswith("sjp"):
+        return cigar_junctions(f[1], int(f[2 * mate]), f[2 * mate + 1])
+    if f[0].startswith("sj"):
+        return cigar_junctions(f[1], int(f[2]), f[4])
+    return set()
+
+
+def bed_junctions(path) -> set:
+    """The .junction.bed's rows as (contig, left_edge0, right_edge0,
+    donor_strand) keys, the planted truth's format."""
+    out = set()
+    for line in open(path):
+        if line.startswith("#"):
+            continue
+        f = line.rstrip("\n").split("\t")
+        start, left = int(f[1]), int(f[10].split(",")[0])
+        out.add((f[0], start + left - 1, start + int(f[11].split(",")[1]),
+                 int(f[5] == "-")))
+    return out
+
+
+def subjunc_metrics(sam, truth: dict, n_reads: int) -> dict:
+    """What phases 8 and 9 check on a subjunc SAM and its .junction.bed:
+    the primary records and their distinct (name, mate)s, the mapped
+    fraction of the n_reads reads, the share of reads (mates) across
+    planted introns whose record has each of them as an N at its planted
+    edges, the share of pairs flagged proper, and the .junction.bed's
+    recall of the planted junctions with a supporter whose both flanks are
+    at least 17 bases and its precision (rows that are planted
+    junctions)."""
+    primary, mates = 0, set()
+    mapped = spliced = hit = proper = 0
+    for r in sam_records(sam):
+        f = r.split("\t", 6)
+        flag = int(f[1])
+        if flag & 0x900:
+            continue
+        primary += 1
+        mate = 2 if flag & 0x80 else 1
+        mates.add((f[0], mate))
+        proper += mate == 1 and bool(flag & 0x2)
+        mapped += not flag & 4
+        want = truth_junctions(f[0], mate)
+        if want:
+            spliced += 1
+            hit += not flag & 4 and want <= cigar_junctions(
+                f[2], int(f[3]), f[5])
+    bed = bed_junctions(str(sam) + ".junction.bed")
+    planted = {k for k, (_, strong) in truth["junctions"].items() if strong}
+    return dict(
+        primary=primary, distinct=len(mates), mapped=mapped / n_reads,
+        spliced=spliced, spliced_share=hit / max(spliced, 1),
+        proper=2 * proper / n_reads, bed_rows=len(bed),
+        recall=len(bed & planted) / max(len(planted), 1),
+        precision=len(bed & set(truth["junctions"])) / max(len(bed), 1),
+    )
+
+
+def fusion_share(vcf, fusions, tol: int = 10) -> float:
+    """The share of planted fusions ((contig, pos1), (contig, pos1)) with a
+    breakend pair of the .breakpoints.vcf within tol bases of both ends."""
+    ends: dict = {}
+    for line in open(vcf):
+        if line.startswith("#"):
+            continue
+        f = line.split("\t")
+        m = re.search(r"[\[\]]([^:\[\]]+):(\d+)[\[\]]", f[4])
+        if m:
+            ends.setdefault((f[0], m.group(1)), []).append(
+                (int(f[1]), int(m.group(2))))
+    found = 0
+    for (ca, pa), (cb, pb) in fusions:
+        found += any(
+            abs(x - p) <= tol and abs(y - q) <= tol
+            for (a, b), (p, q) in (((ca, cb), (pa, pb)), ((cb, ca), (pb, pa)))
+            for x, y in ends.get((a, b), ())
+        )
+    return found / max(len(fusions), 1)
+
+
+def write_gtf(path, junctions) -> None:
+    """A GTF with one two-exon transcript across every third planted
+    junction (-a)."""
+    with open(path, "w") as f:
+        for n, (c, le, re_, ds) in enumerate(sorted(junctions)[::3]):
+            s = "-" if ds else "+"
+            for a, e in ((le - 48, le + 1), (re_ + 1, re_ + 50)):
+                f.write(f'{c}\tsim\texon\t{a}\t{e}\t.\t{s}\t.\t'
+                        f'gene_id "g{n}"; transcript_id "t{n}";\n')
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--genome-mb", type=float, default=100.0)
     ap.add_argument("--reads", type=int, default=200_000)
     ap.add_argument("--pairs", type=int, default=100_000)
+    ap.add_argument("--spliced-reads", type=int, default=100_000)
+    ap.add_argument("--spliced-pairs", type=int, default=50_000)
     ap.add_argument("--seed", type=int, default=7)
     args = ap.parse_args()
 
@@ -150,15 +310,20 @@ def main() -> int:
         fail("torch.cuda.is_available() is False: this script needs a GPU")
     sys.path.insert(0, str(ROOT))
     from subread_tpu.index.build import build_hash_index
+    from subread_tpu.io.fastq import ReadBatch
     from subread_tpu_torch import cuda_build
-    from subread_tpu_torch.align.pipeline import Aligner, uniform_length
+    from subread_tpu_torch.align.pipeline import (
+        Aligner, junction_event_arrays, uniform_length,
+    )
     from subread_tpu_torch.ops import probe
-    from subread_tpu_torch.ops.vote import probe_inputs, vote_batch
     from subread_tpu_torch.synth import (
         synthetic_genome, synthetic_long_indel_reads, synthetic_pairs,
-        synthetic_reads, write_fastq,
+        synthetic_reads, synthetic_spliced_pairs, synthetic_spliced_reads,
+        write_fastq,
     )
+    from subread_tpu_torch.timing import first_block_vote, host_seconds, stage_ms
     from subread_tpu_torch.tools import align as align_cli
+    from subread_tpu_torch.tools import subjunc as subjunc_cli
 
     # ---- phase 0: toolchain facts ------------------------------------
     card = sh("nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader")
@@ -222,44 +387,18 @@ def main() -> int:
     )
     genome_l, index_l = align_cli.load_index_any(prefix)
     al_cuda = Aligner(genome_l, index_l, cfg, device=dev)
-    blk = al_cuda.dev_index.blocks[0]
     R = 8192
-    codes, ambig, lens = al_cuda._upload_reads(
+    batch = al_cuda._upload_reads(
         reads.codes[:R], reads.ambig[:R], reads.lengths[:R]
     )
     rescue_hits = al_cuda.rescue_hits
-    keys, valid, orient, own, _ = probe_inputs(
-        codes, ambig, lens, al_cuda.vote_params, 100
-    )
-    own_rp = own[None, :].expand(R, -1).contiguous()
-    shapes = [
-        ("main", R, keys.shape[1], 16),
-        ("wide-mixed", 4096, 8, rescue_hits),
-        ("wide-full", 512, keys.shape[1], rescue_hits),
-    ]
-    timings = {}
-    max_err = 0
-    for name, r, p, H in shapes:
-        a = (keys[:r, :p].contiguous(), valid[:r, :p].contiguous(),
-             orient[:r, :p].contiguous(),
-             own_rp[:r, :p].contiguous() if name != "main" else own)
-        ix = (blk.bucket_start, blk.comb, blk.sub_base, blk.sub_lo,
-              blk.bucket_bits, blk.sub_bits, blk.search_steps, H)
-        kv_k, tr_k = probe.probe_hits(*a, *ix)
-        kv_r, tr_r = probe.probe_hits_reference(*a, *ix)
-        torch.cuda.synchronize()
-        err = int((kv_k - kv_r).abs().max().item()) if kv_k.numel() else 0
-        max_err = max(max_err, err)
-        check(torch.equal(kv_k, kv_r) and torch.equal(tr_k, tr_r),
-              f"probe_hits kernel differs from plain at {name} (max |err| {err})")
-        ms_k = cuda_ms(lambda: probe.probe_hits(*a, *ix))
-        ms_r = cuda_ms(lambda: probe.probe_hits_reference(*a, *ix))
-        timings[name] = (ms_k, ms_r)
-        hits = int((kv_k != 0xFFFFFFFF).sum().item())
-        print(f"phase 2: {name} [{r} x {p}] H={H}: bit-equal (tolerance 0), {hits} hits, "
-              f"{int(tr_k.sum().item())} truncated; kernel {ms_k:.4f} ms, "
-              f"plain {ms_r:.4f} ms, plain/kernel {ms_r / ms_k:.2f}")
-    del blk, codes, ambig, keys, valid, orient, own, own_rp
+    vp = al_cuda.vote_params
+    timings, max_err = kernel_against_plain("phase 2", al_cuda, batch, vp, [
+        ("main", R, None, vp.max_hits, True),
+        ("wide-mixed", 4096, 8, rescue_hits, False),
+        ("wide-full", 512, None, rescue_hits, False),
+    ])
+    del batch
     torch.cuda.empty_cache()
 
     # ---- phase 3: the main path through the CLI ----------------------
@@ -356,29 +495,25 @@ def main() -> int:
     p1, p2 = pairs
     m1 = al_cuda._upload_reads(p1.codes[:bs], p1.ambig[:bs], p1.lengths[:bs])
     m2 = al_cuda._upload_reads(p2.codes[:bs], p2.ambig[:bs], p2.lengths[:bs])
-    blk = al_cuda.dev_index.blocks[0]
     vp8 = al_cuda.vote_params._replace(top_k=max(al_cuda.vote_params.top_k, 8))
     scs = []
     for c, a, ln in (m1, m2):
-        v = vote_batch(c, a, ln, blk.bucket_start, blk.comb, blk.bucket_bits,
-                       vp8, static_len=100, sub_base=blk.sub_base,
-                       sub_lo=blk.sub_lo, sub_bits=blk.sub_bits,
-                       search_steps=blk.search_steps)
+        v = first_block_vote(al_cuda, c, a, ln, vp8, 100)
         scs.append(al_cuda._score_candidates(c, a, ln, v, cfg.min_votes_second, 100))
     etl = (cfg.min_fragment + cfg.max_fragment) // 2
-    sel_ev, sel_wall = timed_ms(
+    sel_ev, sel_wall = stage_ms(
         lambda: al_cuda._select_pe(m1[2], m2[2], *scs, etl))
     ul1 = uniform_length(p1.lengths[:bs])
     ul2 = uniform_length(p2.lengths[:bs])
-    all_ev, all_wall = timed_ms(
-        lambda: al_cuda._device_align_pe(*m1, *m2, ul1=ul1, ul2=ul2), n=10)
+    all_ev, all_wall = stage_ms(
+        lambda: al_cuda._device_align_pe(*m1, *m2, ul1=ul1, ul2=ul2), 10)
     print(f"phase 5: one {bs}-pair sub-batch, medians of the same timed calls "
           f"(CUDA events / host clock to a synchronise): _select_pe "
           f"[{bs} x {vp8.top_k} x {vp8.top_k}] {sel_ev:.4f} / {sel_wall:.4f} ms "
           f"(20 calls); whole _device_align_pe {all_ev:.4f} / "
           f"{all_wall:.4f} ms (10 calls); _select_pe's share "
           f"{sel_ev / all_ev:.4f} / {sel_wall / all_wall:.4f}")
-    del m1, m2, scs, blk
+    del m1, m2, scs
     torch.cuda.empty_cache()
 
     # ---- phase 6: paired-end, CUDA against CPU -------------------------
@@ -431,13 +566,179 @@ def main() -> int:
           "phase 7 never launched the probe_hits kernel")
     print(f"phase 7: {len(li)} reads with -I 60: {n_del} long D and {n_ins} "
           f"long I CIGAR operations")
+    del al_cuda
+    torch.cuda.empty_cache()
+
+    # ---- phase 8: subjunc single-end through the CLI -------------------
+    t = time.time()
+    sp, sp_truth = synthetic_spliced_reads(genome, args.spliced_reads,
+                                           seed=args.seed + 4)
+    fq8 = work / "spliced.fq"
+    write_fastq(str(fq8), sp)
+    print(f"phase 8: set-up: {len(sp)} spliced reads across "
+          f"{len(sp_truth['junctions'])} planted junctions, "
+          f"{len(sp_truth['fusions'])} chimeras ({time.time() - t:.1f}s)")
+    sam8 = work / "sj.sam"
+    argv = ["-i", prefix, "-r", str(fq8), "-o", str(sam8), "--device", "cuda"]
+    steps = [(Aligner, n, n) for n in
+             ("submit_batch", "collect_batch", *JUNCTION_STEPS, "_emit_sam")]
+    probe.probe_hits.launches = 0
+    with host_seconds(steps) as secs8:
+        run = align_cli.run_align(subjunc_cli.build_parser().parse_args(argv),
+                                  subjunc=True)
+        torch.cuda.synchronize()
+    launches["subjunc (phase 8)"] = probe.probe_hits.launches
+    m8 = subjunc_metrics(sam8, sp_truth, len(sp))
+    check(m8["primary"] == len(sp) and m8["distinct"] == len(sp),
+          f"phase 8: {m8['primary']} primary records for {len(sp)} reads")
+    for k, lo in SUBJUNC_MIN.items():
+        check(m8[k] >= lo, f"phase 8: {k} {m8[k]:.4f} < {lo}")
+    check(launches["subjunc (phase 8)"] > 0,
+          "subjunc never launched the probe_hits kernel")
+    print(f"phase 8: {len(sp)} spliced reads, mapped fraction "
+          f"{m8['mapped']:.4f}; {m8['spliced_share']:.4f} of the "
+          f"{m8['spliced']} reads across planted introns have them as N; "
+          f".junction.bed {m8['bed_rows']} rows, recall {m8['recall']:.4f}, "
+          f"precision {m8['precision']:.4f}; "
+          f"{launches['subjunc (phase 8)']} kernel launches; "
+          f"{len(sp) / run['time_align']:.1f} reads/s over align_file "
+          f"({run['time_align']:.2f}s: collect+host junction steps "
+          f"{run['time_voting']:.2f}s, read+fusions+emit "
+          f"{run['time_io']:.2f}s); host seconds in {steps_line(secs8)}")
+
+    # the kernel against plain at subjunc's shapes, and the junction
+    # stages, on one sub-batch, on an aligner with the run's options
+    cfg8 = align_cli.config_from_args(subjunc_cli.build_parser().parse_args(
+        ["-i", prefix, "-r", "-", "-o", "-"]), subjunc=True)
+    al8 = Aligner(genome_l, index_l, cfg8, device=dev)
+    vp = al8.vote_params
+    bs = cfg8.batch_reads
+    c8, a8, l8 = al8._upload_reads(sp.codes[:bs], sp.ambig[:bs], sp.lengths[:bs])
+    t8, err8 = kernel_against_plain("phase 8", al8, (c8, a8, l8), vp, [
+        ("subjunc-main", bs, None, vp.max_hits, True),
+        ("subjunc-wide-mixed", 4096, 8, al8.rescue_hits, False),
+        ("subjunc-wide-full", 512, None, al8.rescue_hits, True),
+    ])
+    timings.update(t8)
+    max_err = max(max_err, err8)
+    v8 = first_block_vote(al8, c8, a8, l8, vp, 100)
+    sc8 = al8._score_candidates(c8, a8, l8, v8, uniform_len=100)
+    sel_ev, sel_wall = stage_ms(
+        lambda: al8._select_se_junc(c8, l8, v8, sc8, 100), 10)
+    all_ev, all_wall = stage_ms(
+        lambda: al8._device_align(c8, a8, l8, uniform_len=100), 10)
+    sub = ReadBatch(sp.names[:bs], sp.codes[:bs], sp.lengths[:bs],
+                    sp.quals[:bs], sp.ambig[:bs])
+    res8 = al8.align_batch(sub)
+    table = {k: (0, 0, 0) for k in bed_junctions(str(sam8) + ".junction.bed")}
+    ev_l, ev_r, al8._ev_donor = junction_event_arrays(genome_l, table)
+    rwe_ev, rwe_wall = stage_ms(
+        lambda: al8.rescue_with_events(sub, res8, ev_l, ev_r), 5)
+    print(f"phase 8: one {bs}-read sub-batch, medians of the same timed calls "
+          f"(CUDA events / host clock to a synchronise): _select_se_junc "
+          f"{sel_ev:.4f} / {sel_wall:.4f} ms, whole _device_align "
+          f"{all_ev:.4f} / {all_wall:.4f} ms (10 calls each; share "
+          f"{sel_ev / all_ev:.4f} / {sel_wall / all_wall:.4f}); "
+          f"rescue_with_events against {len(ev_l)} events "
+          f"{rwe_ev:.4f} / {rwe_wall:.4f} ms (5 calls)")
+    del al8, c8, a8, l8, v8, sc8, res8
+    torch.cuda.empty_cache()
+
+    # ---- phase 9: subjunc paired-end with --allJunctions ---------------
+    t = time.time()
+    sp1, sp2, spp_truth = synthetic_spliced_pairs(genome, args.spliced_pairs,
+                                                  seed=args.seed + 5)
+    f91, f92 = work / "sp1.fq", work / "sp2.fq"
+    write_fastq(str(f91), sp1)
+    write_fastq(str(f92), sp2)
+    print(f"phase 9: set-up: {len(sp1)} spliced pairs across "
+          f"{len(spp_truth['junctions'])} planted junctions, "
+          f"{len(spp_truth['fusions'])} chimeric mates ({time.time() - t:.1f}s)")
+    sam9 = work / "sjp.sam"
+    argv = ["-i", prefix, "-r", str(f91), "-R", str(f92), "-o", str(sam9),
+            "--allJunctions", "--device", "cuda"]
+    steps = [(Aligner, n, n) for n in
+             ("submit_batch_pe", "collect_batch_pe", *JUNCTION_STEPS,
+              "_emit_sam_pe")]
+    probe.probe_hits.launches = 0
+    with host_seconds(steps) as secs9:
+        run = align_cli.run_align(subjunc_cli.build_parser().parse_args(argv),
+                                  subjunc=True)
+        torch.cuda.synchronize()
+    launches["subjunc-pe (phase 9)"] = probe.probe_hits.launches
+    n9 = 2 * len(sp1)
+    m9 = subjunc_metrics(sam9, spp_truth, n9)
+    m9["fusions"] = fusion_share(str(sam9) + ".breakpoints.vcf",
+                                 spp_truth["fusions"])
+    check(m9["primary"] == n9 and m9["distinct"] == n9,
+          f"phase 9: {m9['primary']} primary records for {len(sp1)} pairs")
+    for k, lo in SUBJUNC_PE_MIN.items():
+        check(m9[k] >= lo, f"phase 9: {k} {m9[k]:.4f} < {lo}")
+    check(launches["subjunc-pe (phase 9)"] > 0,
+          "paired-end subjunc never launched the probe_hits kernel")
+    print(f"phase 9: {len(sp1)} spliced pairs, mapped fraction "
+          f"{m9['mapped']:.4f} of reads, proper-pair fraction "
+          f"{m9['proper']:.4f}; {m9['spliced_share']:.4f} of the "
+          f"{m9['spliced']} mates across planted introns have them as N; "
+          f".junction.bed {m9['bed_rows']} rows, recall {m9['recall']:.4f}, "
+          f"precision {m9['precision']:.4f}; .breakpoints.vcf holds "
+          f"{m9['fusions']:.4f} of {len(spp_truth['fusions'])} planted fusions; "
+          f"{launches['subjunc-pe (phase 9)']} kernel launches; "
+          f"{n9 / run['time_align']:.1f} reads/s over align_file_pe "
+          f"({run['time_align']:.2f}s: collect {run['time_voting']:.2f}s, "
+          f"read+host junction steps+fusions+emit {run['time_io']:.2f}s); "
+          f"host seconds in {steps_line(secs9)}")
+
+    # ---- phase 10: subjunc --allJunctions -a, CUDA against CPU ---------
+    n10, n10p = min(8192, len(sp)), min(4096, len(sp1))
+    fq10, f101, f102 = work / "sp8k.fq", work / "sp1_4k.fq", work / "sp2_4k.fq"
+    head_fastq(fq8, fq10, n10)
+    head_fastq(f91, f101, n10p)
+    head_fastq(f92, f102, n10p)
+    gtf = work / "ann.gtf"
+    write_gtf(gtf, sp_truth["junctions"])
+    sj_args = subjunc_cli.build_parser().parse_args(
+        ["-i", prefix, "-r", "-", "-o", "-", "--allJunctions", "-a", str(gtf)])
+    cfg_sj = align_cli.config_from_args(sj_args, subjunc=True)
+    annot = align_cli.load_annotated_junctions(sj_args)
+    outs = {}
+    for d in ("cpu", "cuda"):
+        al = Aligner(genome_l, index_l, cfg_sj, device=dev if d == "cuda" else d)
+        al.annot_junctions = annot
+        t = time.time()
+        if d == "cuda":
+            probe.probe_hits.launches = 0
+        al.align_file(str(fq10), str(work / f"p10_{d}.sam"))
+        al.align_file_pe(str(f101), str(f102), str(work / f"p10pe_{d}.sam"))
+        if d == "cuda":
+            torch.cuda.synchronize()
+            launches["subjunc -a, 8k reads + 4k pairs (phase 10)"] = (
+                probe.probe_hits.launches)
+        outs[d] = (work / f"p10_{d}.sam", work / f"p10pe_{d}.sam")
+        print(f"phase 10: {n10} reads and {n10p} pairs on {d} in "
+              f"{time.time() - t:.1f}s")
+    for a, b in zip(outs["cpu"], outs["cuda"]):
+        check(sam_records(a) == sam_records(b),
+              f"phase 10: SAM records of {a.name} differ between cpu and cuda")
+        for suf in (".junction.bed", ".breakpoints.vcf", ".indel.vcf"):
+            check(Path(str(a) + suf).read_text() == Path(str(b) + suf).read_text(),
+                  f"phase 10: {a.name}{suf} differs between cpu and cuda")
+    check(launches["subjunc -a, 8k reads + 4k pairs (phase 10)"] > 0,
+          "phase 10 never launched the probe_hits kernel")
+    print(f"phase 10: cpu and cuda agree on "
+          f"{sum(len(sam_records(a)) for a in outs['cpu'])} SAM records, the "
+          f".junction.bed ({len(bed_junctions(str(outs['cpu'][0]) + '.junction.bed'))} "
+          f"and {len(bed_junctions(str(outs['cpu'][1]) + '.junction.bed'))} rows), "
+          f".breakpoints.vcf and .indel.vcf")
     print(f"probe_hits launches per path: {json.dumps(launches)}")
     shutil.rmtree(work, ignore_errors=True)
 
     ms_k, ms_r = timings["main"]
-    # the kernels line counts the two main paths' runs only (phases 3, 5)
+    # the kernels line counts the main paths' runs only (phases 3, 5, 8, 9)
     main_paths = {"single-end": launches["single-end (phase 3)"],
-                  "paired-end": launches["paired-end (phase 5)"]}
+                  "paired-end": launches["paired-end (phase 5)"],
+                  "subjunc": launches["subjunc (phase 8)"],
+                  "subjunc-pe": launches["subjunc-pe (phase 9)"]}
     print(card)
     print(json.dumps({"kernels": [{
         "name": "probe_hits", "route": "cuda", "source": KERNEL_SOURCE,

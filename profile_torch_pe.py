@@ -24,40 +24,12 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import shutil
-import statistics
 import subprocess
 import sys
 import time
-from collections import defaultdict
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-
-
-def stage_ms(fn, reps: int, cuda: bool) -> tuple[float, float]:
-    """Medians of reps timings of fn() after one warm-up call: CUDA-event
-    ms (nan without a card) and host ms from a synchronised start to the
-    synchronise after it, taken on the same calls."""
-    import torch
-
-    fn()
-    ev, wall = [], []
-    for _ in range(reps):
-        if cuda:
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-        t = time.perf_counter()
-        if cuda:
-            a.record()
-        fn()
-        if cuda:
-            b.record()
-            b.synchronize()
-            ev.append(a.elapsed_time(b))
-        wall.append((time.perf_counter() - t) * 1e3)
-    return (statistics.median(ev) if ev else float("nan"),
-            statistics.median(wall))
 
 
 def main() -> int:
@@ -80,10 +52,10 @@ def main() -> int:
     from subread_tpu.index.build import build_hash_index
     from subread_tpu_torch.align import indelevent
     from subread_tpu_torch.align.pipeline import Aligner, uniform_length
-    from subread_tpu_torch.ops.vote import vote_batch
     from subread_tpu_torch.synth import (
         synthetic_genome, synthetic_pairs, write_fastq,
     )
+    from subread_tpu_torch.timing import first_block_vote, host_seconds, stage_ms
     from subread_tpu_torch.tools import align as align_cli
 
     if cuda:
@@ -110,14 +82,10 @@ def main() -> int:
     rows = [(b.codes[:bs], b.ambig[:bs], b.lengths[:bs]) for b in (b1, b2)]
     ul1, ul2 = (uniform_length(r[2]) for r in rows)
     m1, m2 = (al._upload_reads(*r) for r in rows)
-    blk = al.dev_index.blocks[0]
     vp = al.vote_params._replace(top_k=max(al.vote_params.top_k, 8))
 
     def votes():
-        return [vote_batch(c, a, ln, blk.bucket_start, blk.comb,
-                           blk.bucket_bits, vp, static_len=ul,
-                           sub_base=blk.sub_base, sub_lo=blk.sub_lo,
-                           sub_bits=blk.sub_bits, search_steps=blk.search_steps)
+        return [first_block_vote(al, c, a, ln, vp, ul)
                 for (c, a, ln), ul in ((m1, ul1), (m2, ul2))]
 
     v = votes()
@@ -169,37 +137,24 @@ def main() -> int:
               f"unprofiled {t_chunk:.4f} s")
 
     # ---- host steps of align_file_pe over the chunk ---------------------
-    spent = defaultdict(float)
-
-    def timed(owner, name, label, device_step=False):
-        fn = getattr(owner, name)
-
-        def wrapper(*a, **k):
-            t0 = time.perf_counter()
-            out = fn(*a, **k)
-            if device_step:
-                sync()
-            spent[label] += time.perf_counter() - t0
-            return out
-
-        setattr(owner, name, wrapper)
-
-    timed(al, "submit_batch_pe", "submit_batch_pe (to a synchronise)",
-          device_step=True)
-    timed(al, "collect_batch_pe", "collect_batch_pe (with the host rescue)")
-    timed(indelevent, "propose_and_apply", "propose_and_apply, both mates")
-    timed(indelevent, "rescue_clipped_with_events",
-          "rescue_clipped_with_events, both mates")
-    timed(indelevent, "rescue_unmapped_mates", "rescue_unmapped_mates")
-    timed(al, "_emit_sam_pe", "_emit_sam_pe")
+    steps = [
+        (al, "submit_batch_pe", "submit_batch_pe (to a synchronise)", True),
+        (al, "collect_batch_pe", "collect_batch_pe (with the host rescue)"),
+        (indelevent, "propose_and_apply", "propose_and_apply, both mates"),
+        (indelevent, "rescue_clipped_with_events",
+         "rescue_clipped_with_events, both mates"),
+        (indelevent, "rescue_unmapped_mates", "rescue_unmapped_mates"),
+        (al, "_emit_sam_pe", "_emit_sam_pe"),
+    ]
     work = ROOT / "build" / "profile_pe"
     work.mkdir(parents=True, exist_ok=True)
     fq1, fq2 = str(work / "r1.fq"), str(work / "r2.fq")
     write_fastq(fq1, b1)
     write_fastq(fq2, b2)
-    t = time.perf_counter()
-    al.align_file_pe(fq1, fq2, str(work / "out.sam"))
-    t_file = time.perf_counter() - t
+    with host_seconds(steps, sync) as spent:
+        t = time.perf_counter()
+        al.align_file_pe(fq1, fq2, str(work / "out.sam"))
+        t_file = time.perf_counter() - t
     shutil.rmtree(work, ignore_errors=True)
     print(f"align_file_pe over {args.pairs} pairs: {t_file:.4f} s "
           f"({2 * args.pairs / t_file:.1f} reads/s); host seconds per step:")

@@ -1,23 +1,23 @@
-"""subread-align in PyTorch, single-end and paired-end: port of
+"""subread-align and subjunc in PyTorch, single-end and paired-end: port of
 subread_tpu/align/pipeline.py.
 
 The device steps (vote, scan-2 scoring, single-end and paired-end
-selection, the saturation rescue tiers) run as torch ops on the Aligner's
-device, with the hit gather in the CUDA kernel `ops.probe.probe_hits` on a
-card.  Each chunk is split into `batch_reads` sub-batches;
-`submit_batch`/`submit_batch_pe` queue every sub-batch's work and
-`collect_batch`/`collect_batch_pe` read the results back, so the work of
-chunk N+1 is queued before chunk N is read.
+selection, the saturation rescue tiers, and with junction detection the
+junction split scans, the stored-candidate event seeds and the event-table
+rescue step) run as torch ops on the Aligner's device, with the hit gather
+in the CUDA kernel `ops.probe.probe_hits` on a card.  Each chunk is split
+into `batch_reads` sub-batches; `submit_batch`/`submit_batch_pe` queue
+every sub-batch's work and `collect_batch`/`collect_batch_pe` read the
+results back, so the work of chunk N+1 is queued before chunk N is read.
 
 The host side (align_file, align_file_pe, SAM emission, indel-event
-placement, multi-indel refinement, the long-indel rescue for -I > 16) is a
-copy of the JAX package's, not an import: importing anything under
-subread_tpu.align loads JAX through that package's __init__, and the
-machine with the card has no JAX.  Only the imports changed, to
-subread_tpu's JAX-free modules and the port's own copies.
-
-Not ported here: subjunc and junction detection (--sv, --allJunctions);
-the constructor refuses configurations that need them.
+placement, multi-indel refinement, the long-indel rescue for -I > 16, the
+junction tables, the event-table rescue's accept rules, junction chaining,
+fusion breakpoints) is a copy of the JAX package's, not an import:
+importing anything under subread_tpu.align loads JAX through that
+package's __init__, and the machine with the card has no JAX.  Only the
+imports changed, to subread_tpu's JAX-free modules and the port's own
+copies.
 """
 
 from __future__ import annotations
@@ -38,6 +38,10 @@ from ..device import SENTINEL, resolve_device, u32, upload
 from ..dna import unpack_reads_device
 from ..index import to_device
 from ..ops.extend import oriented_read, place_single_indel, ref_clip_stats
+from ..ops.junction import (
+    big_margin_ambiguous, junction_rescue, junction_split_scan,
+    pick_junction_pair, pick_stored_seed_junctions,
+)
 from ..ops.vote import (
     VoteParams, VoteResult, merge_vote_results, static_offsets, vote_batch,
 )
@@ -48,7 +52,12 @@ from ..ops.vote import (
 # rest SENTINEL, or the whole table when more than PKV_CAP rows are flagged.
 PKV_CAP = 2048
 
-_U32_KEYS = ("pos", "alt_pos", "probe_kv")  # uint32 on the host
+_SEEDS = ("seed", "seed2", "seed3")      # the stored-candidate event seeds
+
+_U32_KEYS = (                            # uint32 on the host
+    "pos", "alt_pos", "probe_kv", "alt2_pos", "vk_pos",
+    *(f"{p}_{e}" for p in _SEEDS for e in ("left", "right")),
+)
 
 # the narrowing the JAX pipeline applies to a result before the host reads
 # it (its _PACK_CAST): _select_pe leaves these at the candidate tables'
@@ -62,13 +71,14 @@ def _host(key: str, t: torch.Tensor) -> np.ndarray:
     return a.astype(np.uint32) if key in _U32_KEYS else a
 
 
-def _host_part(res: dict) -> dict[str, np.ndarray]:
-    """One sub-batch's result on the host: every key but best_k, narrowed
-    by _PACK_CAST, and probe_kv only when some read is flagged for host
-    indel placement (indel != 0 or multi_indel): the flagged rows with the
-    rest SENTINEL, or the whole table past PKV_CAP flagged rows."""
-    d = {k: _host(k, v) for k, v in res.items()
-         if k not in ("probe_kv", "best_k")}
+def _host_part(res: dict, keep_best_k: bool = False) -> dict[str, np.ndarray]:
+    """One sub-batch's result on the host: every key (best_k only when
+    `keep_best_k`: fusion detection reads it), narrowed by _PACK_CAST, and
+    probe_kv only when some read is flagged for host indel placement
+    (indel != 0 or multi_indel): the flagged rows with the rest SENTINEL,
+    or the whole table past PKV_CAP flagged rows."""
+    drop = ("probe_kv",) if keep_best_k else ("probe_kv", "best_k")
+    d = {k: _host(k, v) for k, v in res.items() if k not in drop}
     for k, dt in _PACK_CAST.items():
         if k in d:
             d[k] = d[k].astype(dt, copy=False)
@@ -139,6 +149,176 @@ def write_indel_vcf(path: str, genome: Genome, indels: dict) -> None:
             )
 
 
+# The junction-table helpers below, collect_junctions to
+# write_junction_bed, are copies of the JAX package's host functions, for
+# the reason the module docstring gives.
+
+def collect_junctions(res: dict, batch, genome, table: dict,
+                      mask: np.ndarray | None = None) -> dict | None:
+    """Accumulate junction events from a result batch into the shared
+    event table; also returns {(left_lin, right_lin): donor_strand}.
+
+    mask: only count these rows.  The reference's junction.bed holds
+    exactly the junctions of its REPORTED records (its bed and SAM
+    junction sets are identical on the subjunc PE test) — final-table
+    calls pass the emit predicate so unreported (multi-mapping /
+    out-of-range) reads and unconfirmed seeds never add support."""
+    if "junc" not in res:
+        return None
+    donor_of = {}
+    junc = np.asarray(res["junc"], bool)
+    if mask is not None:
+        junc = junc & np.asarray(mask, bool)
+        # chained (cigar_override) rows: res["pos"] was moved to the chain
+        # start while split/junc_gap kept their pre-chain values, so a key
+        # built here would mix frames and mint a phantom junction.  Their
+        # junctions (head/tail events + the primary, all in consistent
+        # frames) are counted by chain_clipped_junctions itself.
+        for i in (res.get("cigar_override") or {}):
+            if i < len(junc):
+                junc[i] = False
+    sel = np.flatnonzero(junc)
+    if len(sel) == 0:
+        return donor_of
+    lin = res["pos"].astype(np.int64)
+    cidx, coff = genome.linear_to_chro(lin)
+    for i in sel:
+        split = int(res["split"][i])
+        gap = int(res["junc_gap"][i])
+        L = int(batch.lengths[i])
+        p0 = int(coff[i])
+        left_edge = p0 + split - 1
+        right_edge = p0 + split + gap
+        key = (
+            genome.names[int(cidx[i])], left_edge, right_edge,
+            int(res["junc_donor_strand"][i]),
+        )
+        jcl = int(res["clip_l"][i]) if "clip_l" in res else 0
+        jcr = int(res["clip_r"][i]) if "clip_r" in res else 0
+        sup, ml, mr = table.get(key, (0, 0, 0))
+        table[key] = (sup + 1, max(ml, split), max(mr, L - jcl - split - jcr))
+        donor_of[(int(lin[i]) + split - 1, int(lin[i]) + split + gap)] = int(
+            res["junc_donor_strand"][i]
+        )
+    return donor_of
+
+
+def collect_seed_junctions(res: dict, genome, table: dict,
+                           pending: dict | None = None,
+                           min_proposers: int = 1) -> None:
+    """Seed-only junction events (find_new_junctions seeding once per
+    stored candidate result, core.c:3249-3278 + core-junction.c:3836,
+    gated by the 3-slot big-margin record :789): entered with support 0
+    so they drive scan-2 rescue but only reach .junction.bed once a
+    supporter is counted — exactly the reference's event lifecycle
+    (events exist from scan 1; write_junction_final_results only emits
+    final_counted_reads >= 1)."""
+    if pending is None:
+        pending = {}
+    for pfx in ("seed", "seed2", "seed3"):
+        if f"{pfx}_ok" not in res:
+            continue
+        sel = np.flatnonzero(np.asarray(res[f"{pfx}_ok"], bool))
+        if len(sel) == 0:
+            continue
+        lin_l = np.asarray(res[f"{pfx}_left"], np.int64)
+        lin_r = np.asarray(res[f"{pfx}_right"], np.int64)
+        donor = np.asarray(res[f"{pfx}_donor"], np.int64)
+        cidx, coff_l = genome.linear_to_chro(lin_l)
+        cidx_r, coff_r = genome.linear_to_chro(lin_r)
+        for i in sel:
+            # events are bounded within one chromosome (the reference
+            # keys them by a single chro); a pair straddling a contig
+            # boundary would seed a bogus cross-contig event
+            if int(cidx[i]) != int(cidx_r[i]):
+                continue
+            key = (
+                genome.names[int(cidx[i])], int(coff_l[i]), int(coff_r[i]),
+                int(donor[i]),
+            )
+            n = pending.get(key, 0) + 1
+            pending[key] = n
+            if n >= min_proposers:
+                table.setdefault(key, (0, 0, 0))
+
+
+def known_junctions_from_annotation(ann) -> dict:
+    """-a exon annotation -> preloaded junction events
+    (load_known_junctions, core-indel.c:1313 + add_annotation_to_junctions
+    :1163): per (gene, chromosome), exons sorted by start; a junction spans
+    from the running max exon end to the next exon's start.  Keys use the
+    pipeline's (chro, left_edge0, right_edge0, donor_strand) format with
+    support 0 — they seed the scan-2 rescue event table but only appear in
+    .junction.bed once reads actually support them."""
+    out: dict = {}
+    by_gene: dict[tuple[int, str], list[tuple[int, int, int]]] = {}
+    for i in range(ann.n_features):
+        key = (int(ann.feat_gene[i]), ann.feat_chro[i])
+        by_gene.setdefault(key, []).append(
+            (int(ann.feat_start[i]), int(ann.feat_end[i]),
+             int(ann.feat_strand[i]))
+        )
+    for (_g, chro), exons in by_gene.items():
+        exons.sort()
+        large_end = -1
+        for start, end, strand in exons:
+            if 0 < large_end < start:
+                # left edge = last exon base, right = first next-exon base
+                out[(chro, large_end - 1, start - 1, 1 if strand == 1 else 0)] \
+                    = (0, 0, 0)
+            large_end = max(large_end, end)
+    return out
+
+
+def junction_event_arrays(
+    genome, table: dict
+) -> tuple[np.ndarray, np.ndarray, dict]:
+    """Sorted (left, right) linear-coordinate arrays for the device
+    rescue kernel, plus (left,right)->donor map."""
+    lefts, rights, donor = [], [], {}
+    name_to_idx = {n: i for i, n in enumerate(genome.names)}
+    for (chro, le, re_, ds) in table:
+        c = name_to_idx.get(chro)
+        if c is None:
+            continue
+        ll = int(genome.chro_to_linear(c, le))
+        rl = int(genome.chro_to_linear(c, re_))
+        lefts.append(ll)
+        rights.append(rl)
+        donor[(ll, rl)] = ds
+    if not lefts:
+        return np.zeros(0, np.uint32), np.zeros(0, np.uint32), donor
+    order = np.argsort(lefts)
+    return (
+        np.asarray(lefts, np.uint32)[order],
+        np.asarray(rights, np.uint32)[order],
+        donor,
+    )
+
+
+def write_junction_bed(path: str, junctions: dict) -> None:
+    """Write the .junction.bed table (write_junction_final_results,
+    core-junction.c:4286): BED12-ish rows with flanking block sizes;
+    key = (chro, left_edge0, right_edge0, donor_strand), value =
+    (n_support, max_left_flank, max_right_flank)."""
+    rows = sorted(junctions.items())
+    with open(path, "w") as f:
+        f.write(
+            "#Chr, StartLeftBlock, EndRightBlock, Junction_Name, nSupport, "
+            "Strand, StartLeftBlock, EndRightBlock, Color, nBlocks, "
+            "BlockSizes, BlockStarts\n"
+        )
+        for n, ((chro, le, re, dstrand), (sup, ml, mr)) in enumerate(rows, 1):
+            start = le - ml + 1
+            end = re + mr
+            strand = "-" if dstrand else "+"
+            color = "0,255,255" if dstrand else "255,0,0"
+            f.write(
+                f"{chro}\t{start}\t{end}\tJUNC{n:08d}\t{sup}\t{strand}"
+                f"\t{start}\t{end}\t{color}\t2\t{ml},{mr}\t0,{re - start}\n"
+            )
+
+
 def applied_mismatch_limit(max_mismatches: int, lens: torch.Tensor) -> torch.Tensor:
     """The reference's length-scaled mismatch cap: -M applies per 100bp
     for reads beyond EXON_LONG_READ_LENGTH=160
@@ -158,15 +338,11 @@ def uniform_length(lens: np.ndarray) -> int | None:
 
 
 class Aligner:
-    """Single-end aligner on one device."""
+    """Single-end and paired-end aligner (subread-align, subjunc) on one
+    device."""
 
     def __init__(self, genome: Genome, index, cfg: AlignConfig,
                  device="cuda"):
-        if cfg.detect_junctions or cfg.all_junctions:
-            raise NotImplementedError(
-                "junction detection (subjunc, --sv, --allJunctions) is not "
-                "ported to subread_tpu_torch yet"
-            )
         self.device = resolve_device(device)
         # index: a HashIndex or a list of position-range blocks (-M)
         self.blocks = list(index) if isinstance(index, (list, tuple)) else [index]
@@ -450,7 +626,131 @@ class Aligner:
 
     def _scan2(self, codes, ambig, lens, v: VoteResult, uniform_len=None):
         sc = self._score_candidates(codes, ambig, lens, v, uniform_len=uniform_len)
+        if self.cfg.detect_junctions:
+            return self._select_se_junc(codes, lens, v, sc, uniform_len)
         return self._select_se(lens, sc)
+
+    def _select_se_junc(self, codes, lens, v: VoteResult, sc, uniform_len=None):
+        """Single-end selection plus junction discovery (subjunc, --sv):
+        a junction (head cluster, tail cluster, donor-motif split) replaces
+        the plain alignment when it explains the read at a lower cost in
+        matched-bases space and the best candidate is not vote-ambiguous
+        (the 3-slot big-margin record); then the stored-candidate event
+        seeds, the alternate anchor and, with --allJunctions, the vote
+        clusters (see the JAX method)."""
+        cfg = self.cfg
+        base = self._select_se(lens, sc)
+        pair = pick_junction_pair(v, sc, cfg.max_indel, read_len=lens)
+        jr = self._split_scan(codes, lens, base["strand"], pair, uniform_len)
+        plain_cost = (base["clip_l"].to(torch.int32) + base["clip_r"]
+                      + base["mism"].to(torch.int32))
+        junc_cost = jr["mism"] + jr["clip_l"] + jr["clip_r"]
+        amb_k = big_margin_ambiguous(v, lens, cfg.min_votes_second)
+        best_k_j = torch.argmax(sc["score_k"], dim=1)
+        not_ambiguous = ~torch.gather(amb_k, 1, best_k_j[:, None])[:, 0]
+        use = pair["valid"] & jr["ok"] & (junc_cost < plain_cost) & (
+            jr["mism"] <= cfg.max_mismatches
+        ) & not_ambiguous
+        out = self._junction_fold(base, pair, jr, use)
+        self._junction_exports(codes, lens, v, sc, base, out, uniform_len,
+                               cfg.min_votes, 3)
+        return out
+
+    def _pe_junction_update(self, codes, lens, v: VoteResult, sc, res,
+                            uniform_len=None):
+        """Per-mate junction detection on the paired path: the
+        pair-selected candidate anchors the head/tail search, otherwise as
+        _select_se_junc (see the JAX method)."""
+        cfg = self.cfg
+        pair = pick_junction_pair(v, sc, cfg.max_indel, best=res["best_k"],
+                                  read_len=lens)
+        jr = self._split_scan(codes, lens, res["strand"], pair, uniform_len)
+        plain_cost = torch.where(res["indel"] == 0,
+                                 res["clip_l"] + res["clip_r"] + res["mism"],
+                                 res["mism"])
+        junc_cost = jr["mism"] + jr["clip_l"] + jr["clip_r"]
+        use = pair["valid"] & jr["ok"] & (junc_cost < plain_cost) & (
+            jr["mism"] <= cfg.max_mismatches
+        ) & ~pair["ambiguous"]
+        out = self._junction_fold(res, pair, jr, use)
+        # the paired simple list is uncapped at this K (max_vote_simples=64)
+        self._junction_exports(codes, lens, v, sc, res, out, uniform_len,
+                               cfg.min_votes_second, 64)
+        return out
+
+    def _split_scan(self, codes, lens, strand, pair, uniform_len):
+        """junction_split_scan of the read oriented by `strand` across a
+        (head, tail) pair of pick_junction_pair or one stored-seed slot."""
+        oriented = oriented_read(codes, lens, strand, uniform_len)
+        return junction_split_scan(
+            self.dev_index.genome_words, oriented, lens, pair["head_pos"],
+            pair["gap"], pair["valid"], pair["guess_lo"], pair["guess_hi"],
+        )
+
+    @staticmethod
+    def _junction_fold(res, pair, jr, use):
+        """res with the junction explanation where `use`: pos at the first
+        aligned base (head_pos + clip), split relative to the clipped
+        region, so the CIGAR is clS splitM gapN (L-cl-split-cr)M crS."""
+        out = dict(res)
+        out["pos"] = torch.where(use, u32(pair["head_pos"] + jr["clip_l"]),
+                                 res["pos"])
+        out["mism"] = torch.where(use, jr["mism"], res["mism"])
+        out["mapped"] = res["mapped"] | use
+        out["indel"] = torch.where(use, 0, res["indel"])
+        out["split"] = torch.where(use, jr["split"] - jr["clip_l"], res["split"])
+        out["junc"] = use
+        out["junc_gap"] = torch.where(use, pair["gap"], 0)
+        out["junc_donor_strand"] = jr["donor_strand"]
+        out["clip_l"] = torch.where(use, jr["clip_l"], res["clip_l"])
+        out["clip_r"] = torch.where(use, jr["clip_r"], res["clip_r"])
+        return out
+
+    def _junction_exports(self, codes, lens, v, sc, res, out, uniform_len,
+                          min_votes: int, max_simples: int) -> None:
+        """Into `out`: the event seed of each stored candidate (seed*_ok,
+        _left, _right, _donor), the alternate anchor for the event-table
+        rescue (the best same-strand candidate at another position:
+        alt2_pos, alt2_ok) and, with --allJunctions, the vote clusters for
+        host fusion detection (vk_*).  `res` is the selection before the
+        junction fold."""
+        cfg = self.cfg
+        seed = pick_stored_seed_junctions(
+            v, sc, cfg.max_indel, lens, sc["valid_k"], min_votes=min_votes,
+            min_votes_second=cfg.min_votes_second, max_simples=max_simples,
+        )
+        for s, pfx in enumerate(_SEEDS):
+            slot = {k: seed[k][:, s] for k in
+                    ("head_pos", "gap", "valid", "guess_lo", "guess_hi")}
+            jr_s = self._split_scan(codes, lens, seed["strand"][:, s], slot,
+                                    uniform_len)
+            s_left = u32(slot["head_pos"] + jr_s["split"] - 1)
+            out[f"{pfx}_ok"] = slot["valid"] & jr_s["ok"] & (
+                jr_s["mism"] <= cfg.max_mismatches
+            )
+            out[f"{pfx}_left"] = s_left
+            out[f"{pfx}_right"] = u32(s_left + slot["gap"] + 1)
+            out[f"{pfx}_donor"] = jr_s["donor_strand"].to(torch.int8)
+        mlim = applied_mismatch_limit(cfg.max_mismatches, lens)
+        pos_k, strand_k = sc["pos_k"], sc["strand_k"]
+        K = pos_k.shape[1]
+        not_best = (torch.arange(K, device=lens.device)[None, :]
+                    != res["best_k"].to(torch.int64)[:, None])
+        alt_valid = (
+            sc["valid_k"] & not_best & (pos_k != res["pos"][:, None])
+            & (strand_k == res["strand"][:, None])
+            & (sc["mism_k"] <= mlim[:, None])
+        )
+        alt_score = torch.where(alt_valid, sc["score_k"], -1)
+        k2 = torch.argmax(alt_score, dim=1)[:, None]
+        out["alt2_pos"] = torch.gather(pos_k, 1, k2)[:, 0]
+        out["alt2_ok"] = torch.gather(alt_score, 1, k2)[:, 0] >= 0
+        if cfg.all_junctions:
+            out["vk_pos"] = v.pos
+            out["vk_strand"] = v.strand
+            out["vk_votes"] = v.votes
+            out["vk_cov_s"] = v.cov_start
+            out["vk_cov_e"] = v.cov_end
 
     def _select_pe(self, lens1, lens2, sc1, sc2, expected_tlen: int):
         """Paired-end selection (see the JAX method for the reference's
@@ -735,8 +1035,12 @@ class Aligner:
         r1, r2 = self._select_pe(
             l1, l2, sc1, sc2, (cfg.min_fragment + cfg.max_fragment) // 2
         )
-        r1.pop("best_k")
-        r2.pop("best_k")
+        if cfg.detect_junctions:
+            r1 = self._pe_junction_update(c1, l1, v1, sc1, r1, ul1)
+            r2 = self._pe_junction_update(c2, l2, v2, sc2, r2, ul2)
+        if not cfg.all_junctions:      # fusion detection reads best_k
+            r1.pop("best_k")
+            r2.pop("best_k")
         r1["saturated"] = v1.saturated
         r2["saturated"] = v2.saturated
         if not rescue and self.rescue_fold_cap:
@@ -816,11 +1120,13 @@ class Aligner:
     def collect_batch(self, state) -> dict[str, np.ndarray]:
         """Read a chunk's results back as the dict the JAX pipeline's
         collect_batch gives the host: the same keys and numpy dtypes; best_k
-        left out; probe_kv present only when some sub-batch has a read
-        flagged for host indel placement, with the rows PKV_CAP describes
-        and zero rows for sub-batches without flags."""
+        left out but with --allJunctions; probe_kv present only when some
+        sub-batch has a read flagged for host indel placement, with the
+        rows PKV_CAP describes and zero rows for sub-batches without
+        flags."""
         pending, R, batch = state
-        out = _merge_parts([_host_part(res) for res in pending], R, 0)
+        keep = self.cfg.all_junctions
+        out = _merge_parts([_host_part(res, keep) for res in pending], R, 0)
         self._rescue_saturated(batch, out)
         return out
 
@@ -909,12 +1215,14 @@ class Aligner:
     def collect_batch_pe(self, state):
         """Read a chunk's paired results back as the two dicts the JAX
         pipeline's collect_batch_pe gives the host: the same keys and numpy
-        dtypes (mism, clip_l, clip_r narrowed to int16), best_k left out,
-        probe_kv as collect_batch gives it but with SENTINEL rows for
-        sub-batches without flags; then the host paired rescue."""
+        dtypes (mism, clip_l, clip_r narrowed to int16), best_k left out
+        but with --allJunctions, probe_kv as collect_batch gives it but
+        with SENTINEL rows for sub-batches without flags; then the host
+        paired rescue."""
         pending, R, b1, b2 = state
+        keep = self.cfg.all_junctions
         out1, out2 = (
-            _merge_parts([_host_part(pair[m]) for pair in pending], R,
+            _merge_parts([_host_part(pair[m], keep) for pair in pending], R,
                          0xFFFFFFFF)
             for m in (0, 1)
         )
@@ -949,6 +1257,355 @@ class Aligner:
                 for k, v in res.items():
                     if k != "probe_kv" and k in out:
                         out[k][ii] = _host(k, v)[: len(ii)]
+
+    # --- junction event-table rescue and chaining ----------------------------
+
+    def _junction_rescue_step(self, codes, lens, pos, strand, ev_left,
+                              ev_right) -> dict[str, np.ndarray]:
+        """One sub-batch of the event-table rescue on the device (numpy
+        rows in, the JAX step's numpy dict out: pos uint32, ok bool, the
+        rest int32)."""
+        dev = self.device
+        lens_d = upload(np.ascontiguousarray(lens), dev)
+        oriented = oriented_read(
+            upload(np.ascontiguousarray(codes), dev), lens_d,
+            upload(np.ascontiguousarray(strand), dev),
+        )
+        rj = junction_rescue(
+            self.dev_index.genome_words, oriented, lens_d,
+            upload(np.ascontiguousarray(pos).astype(np.int64), dev),
+            ev_left, ev_right,
+        )
+        return {k: _host(k, t) for k, t in rj.items()}
+
+    # The host methods below, rescue_with_events to chain_clipped_junctions,
+    # are copies of the JAX package's (the module docstring says why); the
+    # rescue's device step is _junction_rescue_step.
+
+    def rescue_with_events(self, batch: ReadBatch, res: dict,
+                           ev_left: np.ndarray, ev_right: np.ndarray) -> dict:
+        """Scan-2 event-table sharing (explain_read, core-junction.c:2617):
+        re-explain every anchored read against the global junction table;
+        a table junction that explains the read with fewer mismatches (or
+        rescues an unmapped read) replaces the plain alignment."""
+        cfg = self.cfg
+        if len(ev_left) == 0 or "junc" not in res:
+            return res
+        # pad the event table to a power of two: the clamp at E-1 in
+        # junction_rescue then repeats a padding event
+        E = 1 << max(4, int(np.ceil(np.log2(len(ev_left)))))
+        pad = np.full(E - len(ev_left), 0xFFFFFFFF, np.uint32)
+        d_left = upload(np.concatenate([ev_left, pad]).astype(np.int64),
+                        self.device)
+        d_right = upload(np.concatenate([ev_right, pad]).astype(np.int64),
+                         self.device)
+
+        codes, ambig, lens, R = self._pad_batch(batch)
+        n = len(lens)
+        pos_p = np.full(n, 0xFFFFFFFF, np.uint32)
+        # the rescue anchors at the position of the read's FIRST base:
+        # a soft-clipped alignment's pos was shifted by clip_l, undo it
+        clip_l = np.asarray(res.get("clip_l", np.zeros(R, np.int32)))
+        clip_r = np.asarray(res.get("clip_r", np.zeros(R, np.int32)))
+        pos_p[:R] = np.where(
+            res["pos"] != np.uint32(0xFFFFFFFF),
+            res["pos"] - clip_l.astype(np.uint32), res["pos"],
+        )
+        # vote-tied repeat copies: an unanchored read with a valid alt2
+        # funnels the alt anchor into arm 1 (otherwise it has no anchor at
+        # all); anchored reads keep their own anchor for arm 1 and try the
+        # alternate copy in arm 2 — the event table decides which copy
+        # explains the read, exactly like the reference's per-candidate
+        # scan-2 explain_read (no smaller-copy preference)
+        if "alt2_pos" in res:
+            tied0 = (
+                np.asarray(res["alt2_ok"], bool)
+                & (pos_p[:R] == np.uint32(0xFFFFFFFF))
+                & (res["alt2_pos"] != np.uint32(0xFFFFFFFF))
+            )
+            pos_p[:R] = np.where(tied0, res["alt2_pos"], pos_p[:R])
+            res = dict(res)
+            res["alt2_pos"] = np.where(
+                tied0, np.uint32(0xFFFFFFFF), res["alt2_pos"]
+            )
+        strand_p = np.zeros(n, np.int32)
+        strand_p[:R] = res["strand"]
+        bs = cfg.batch_reads
+        parts = []
+        for i in range(0, n, bs):
+            sl = slice(i, i + bs)
+            parts.append(self._junction_rescue_step(
+                codes[sl], lens[sl], pos_p[sl], strand_p[sl], d_left, d_right,
+            ))
+        rj = {k: np.concatenate([p[k] for p in parts])[:R] for k in parts[0]}
+
+        # anchored on the FUNNELED anchor: an unanchored read whose valid
+        # alt2 was funneled into pos_p is rescuable at that anchor (the
+        # original res["pos"] is the sentinel for those reads)
+        anchored = pos_p[:R] != np.uint32(0xFFFFFFFF)
+        # costs in matched-bases space: clipped bases are unmatched
+        plain_cost = np.asarray(res["mism"]).astype(np.int64) + clip_l + clip_r
+        rj_cost = (
+            np.asarray(rj["mism"]).astype(np.int64)
+            + np.asarray(rj["clip_l"]) + np.asarray(rj["clip_r"])
+        )
+        accept = (
+            rj["ok"] & anchored & ~res["junc"].astype(bool)
+            & (rj["mism"] <= cfg.max_mismatches)
+            & ((rj_cost + 1 < plain_cost) | ~res["mapped"].astype(bool))
+        )
+        # second arm: break-even repeat copies re-explained at the OTHER
+        # tied location (the reference's scan-2 explain_read runs per
+        # candidate; the copy holding the seeded event wins uniquely)
+        if "alt2_pos" in res:
+            alt_ok = np.asarray(res["alt2_ok"], bool)
+            tied = alt_ok & (
+                ~np.asarray(res["mapped"], bool)
+                | np.asarray(res.get("multi", np.zeros(R, bool)), bool)
+            ) & ~np.asarray(res["junc"], bool)
+            if tied.any():
+                pos2 = np.full(n, 0xFFFFFFFF, np.uint32)
+                pos2[:R] = np.where(tied, res["alt2_pos"], np.uint32(0xFFFFFFFF))
+                parts2 = []
+                for i in range(0, n, bs):
+                    sl = slice(i, i + bs)
+                    parts2.append(self._junction_rescue_step(
+                        codes[sl], lens[sl], pos2[sl], strand_p[sl],
+                        d_left, d_right,
+                    ))
+                rj2 = {k: np.concatenate([p[k] for p in parts2])[:R]
+                       for k in parts2[0]}
+                rj2_cost = (
+                    np.asarray(rj2["mism"]).astype(np.int64)
+                    + np.asarray(rj2["clip_l"]) + np.asarray(rj2["clip_r"])
+                )
+                accept2 = (
+                    rj2["ok"] & tied & ~accept
+                    & (rj2["mism"] <= cfg.max_mismatches)
+                    & ((rj2_cost + 1 < plain_cost)
+                       | ~res["mapped"].astype(bool))
+                )
+                for k in ("mism", "split", "gap", "pos", "ok",
+                          "clip_l", "clip_r"):
+                    rj[k] = np.where(accept2, rj2[k], rj[k])
+                # break-even across repeat copies: when BOTH tied anchors
+                # explain the read through table events at EQUAL cost and
+                # distinct positions, the reference's scan-2 keeps both
+                # equal-best candidates and break-even suppresses the read
+                # (highest_score_occurence >= 2, core.c:2760) — a segdup
+                # twin region where both copies carry seeded events maps
+                # nothing.  Revoke the arm-1 acceptance for those rows.
+                be = (
+                    accept & tied & np.asarray(rj2["ok"], bool)
+                    & (rj2["mism"] <= cfg.max_mismatches)
+                    & (rj2_cost == (
+                        np.asarray(rj["mism"]).astype(np.int64)
+                        + np.asarray(rj["clip_l"]) + np.asarray(rj["clip_r"])
+                    ))
+                    & (np.asarray(rj2["pos"]) != np.asarray(rj["pos"]))
+                    # symmetric twin events only (same intron length at
+                    # both copies): the segdup signature where the two
+                    # explanations are structurally identical and the
+                    # reference's equal scores provably tie; asymmetric
+                    # pairs break the tie through MATCH/penalty detail
+                    & (np.asarray(rj2["gap"]) == np.asarray(rj["gap"]))
+                    # and only for reads with NO own anchor quality at all
+                    # (pre-rescue unmapped): a multi-flagged read that the
+                    # PE weighting still anchored keeps its arm-1 rescue,
+                    # matching the reference's PE-weighted combination
+                    # scores which break these ties (core-junction.c:2336)
+                    & ~np.asarray(res["mapped"], bool)
+                )
+                accept = (accept | accept2) & ~be
+        out = dict(res)
+        # an event-table explanation resolves a vote-level tie: only the
+        # copy holding the seeded event explains the read, so the read is
+        # unique after scan 2 (reference MAPQ = 40/(Nc+Nmm),
+        # doc/SubreadUsersGuide.tex:580-592 — Nc counts the candidates)
+        was_tied = np.asarray(res.get("multi", np.zeros(R, bool)), bool)
+        untied = accept & (was_tied | ~res["mapped"].astype(bool))
+        if "multi" in res:
+            out["multi"] = np.where(accept, False, was_tied)
+        if "mapq" in res and "n_anchors" in res:
+            nc = np.asarray(res["n_anchors"], np.int64)
+            out["mapq"] = np.where(
+                untied,
+                cfg.mapq_unique // np.maximum(nc + rj["mism"], 1),
+                res["mapq"],
+            ).astype(res["mapq"].dtype)
+        out["junc"] = np.where(accept, True, res["junc"]).astype(bool)
+        out["split"] = np.where(accept, rj["split"], res["split"])
+        out["junc_gap"] = np.where(accept, rj["gap"], res["junc_gap"])
+        out["mism"] = np.where(accept, rj["mism"], res["mism"])
+        out["indel"] = np.where(accept, 0, res["indel"])
+        out["mapped"] = res["mapped"] | accept
+        # rescued junction records: pos advances past the noisy clipped
+        # head (the CIGAR is clS (split-cl)M gapN ... crS) and split is
+        # stored relative to the clipped region, like the direct path
+        out["pos"] = np.where(
+            accept,
+            np.asarray(rj["pos"]) + np.asarray(rj["clip_l"]).astype(np.uint32),
+            res["pos"],
+        )
+        out["split"] = np.where(
+            accept, rj["split"] - rj["clip_l"], out["split"]
+        )
+        if "clip_l" in res:
+            out["clip_l"] = np.where(accept, rj["clip_l"], res["clip_l"])
+            out["clip_r"] = np.where(accept, rj["clip_r"], res["clip_r"])
+        # donor strand of a rescued read comes from the event table
+        if "junc_donor_strand" in res and hasattr(self, "_ev_donor"):
+            le = out["pos"].astype(np.int64) + out["split"].astype(np.int64) - 1
+            re_ = le + out["junc_gap"].astype(np.int64) + 1
+            ds = out["junc_donor_strand"].copy()
+            for i in np.flatnonzero(accept):
+                ds[i] = self._ev_donor.get((int(le[i]), int(re_[i])), 0)
+            out["junc_donor_strand"] = ds
+        return out
+
+    def _reported_mask(self, res) -> np.ndarray:
+        """The emit predicate: rows whose record reaches the output as a
+        mapped alignment (mapped, in-contig-range, and not suppressed as
+        multi-mapping).  Junction-support counting is gated on this so the
+        .junction.bed matches the reported records exactly, like the
+        reference's write_junction_final_results (core-junction.c:4286)."""
+        lin = np.asarray(res["pos"]).astype(np.int64)
+        cidx, coff = self.genome.linear_to_chro(lin)
+        ok = (
+            np.asarray(res["mapped"], bool)
+            & (coff >= 0) & (coff < self.genome.lengths[cidx])
+        )
+        if not self.cfg.report_multi_mapping and "multi" in res:
+            ok = ok & ~np.asarray(res["multi"], bool)
+        return ok
+
+    def chain_clipped_junctions(self, batch: ReadBatch, res: dict,
+                                junctions: dict, events: dict | None = None,
+                                count_primary: bool = True,
+                                mask: np.ndarray | None = None) -> dict:
+        """Multi-junction CIGARs (e.g. the reference's 8M98N74M168N19M):
+        a junction read whose clipped end is explained by ANOTHER table
+        junction genome-adjacent to its aligned span gets a second N op
+        (explain_read walks up to MAX_EVENTS_IN_READ=8 events,
+        core-junction.c:2617; here: one extra event per clipped side).
+        Host pass over the (rare) clipped junction reads."""
+        if events is None:
+            events = junctions
+        if "junc" not in res or not events:
+            return res
+        junc = np.asarray(res["junc"], bool)
+        if mask is not None:
+            junc = junc & np.asarray(mask, bool)
+        R = len(junc)
+        zeros = np.zeros(R, np.int32)
+        cl = np.asarray(res.get("clip_l", zeros))
+        cr = np.asarray(res.get("clip_r", zeros))
+        cand = np.flatnonzero(junc & ((cl >= 6) | (cr >= 6)))
+        if len(cand) == 0:
+            return res
+
+        g = self.genome
+        name_to_idx = {n: i for i, n in enumerate(g.names)}
+        by_right: dict[int, tuple[int, int]] = {}
+        by_left: dict[int, tuple[int, int]] = {}
+        for (chro, le, re_, ds) in events:
+            c = name_to_idx.get(chro)
+            if c is None:
+                continue
+            ll = g.chro_to_linear(c, le)
+            rl = g.chro_to_linear(c, re_)
+            by_right[rl] = (ll, ds)
+            by_left[ll] = (rl, ds)
+        overrides = res.get("cigar_override") or {}
+        pos_arr = np.asarray(res["pos"]).copy()
+        mism_arr = np.asarray(res["mism"], np.int32).copy()
+        changed = False
+        for i in cand:
+            L = int(batch.lengths[i])
+            o = batch.codes[i, :L]
+            if int(res["strand"][i]):
+                o = 3 - o[::-1]
+            p0 = int(pos_arr[i])
+            ci, cli, cri = int(res["split"][i]), int(cl[i]), int(cr[i])
+            gap = int(res["junc_gap"][i])
+            tail_m = L - cli - ci - cri
+            ci0 = ci  # pre-chain split (the primary junction's geometry)
+            mm_add = 0
+            new_pos = p0
+            head_cig = tail_cig = None
+            if cli >= 6:
+                # slack d: the clipped boundary may sit a couple of bases
+                # past the true exon edge (the clip bound is heuristic)
+                for d in (0, 1, 2):
+                    if p0 + d not in by_right or ci - d < 8:
+                        continue
+                    le2, ds2 = by_right[p0 + d]
+                    pre = cli + d
+                    s2 = le2 - pre + 1
+                    if s2 < 0:
+                        continue
+                    seg = g.codes[s2 : s2 + pre]
+                    mm = int(np.sum(seg != o[:pre]))
+                    if mm <= 2:
+                        head_cig = (pre, (p0 + d) - le2 - 1)
+                        ci -= d
+                        new_pos = s2
+                        mm_add += mm
+                        cidx, coff = g.linear_to_chro(np.asarray([le2]))
+                        # key uses contig coords of (le, re)
+                        key = (g.names[int(cidx[0])], int(coff[0]),
+                               int(coff[0]) + ((p0 + d) - le2), ds2)
+                        sup, ml, mr = junctions.get(key, (0, 0, 0))
+                        junctions[key] = (sup + 1, max(ml, pre), max(mr, ci))
+                        break
+            last_base = p0 + ci0 + gap + tail_m - 1
+            if cri >= 8 and (last_base in by_left):
+                re2, ds2 = by_left[last_base]
+                seg = g.codes[re2 : re2 + cri]
+                if len(seg) == cri:
+                    mm = int(np.sum(seg != o[L - cri:]))
+                    if mm <= 2:
+                        tail_cig = (re2 - last_base - 1, cri)
+                        mm_add += mm
+                        cidx, coff = g.linear_to_chro(np.asarray([last_base]))
+                        key = (g.names[int(cidx[0])], int(coff[0]),
+                               int(coff[0]) + (re2 - last_base), ds2)
+                        sup, ml, mr = junctions.get(key, (0, 0, 0))
+                        junctions[key] = (sup + 1, max(ml, tail_m), max(mr, cri))
+            if head_cig is None and tail_cig is None:
+                continue
+            if count_primary:
+                # the SE emitter skips override reads, so count the read's
+                # PRIMARY junction here (it would otherwise lose this
+                # support); the PE path counts primaries via
+                # collect_junctions instead
+                cidx0, coff0 = g.linear_to_chro(np.asarray([p0]))
+                key0 = (g.names[int(cidx0[0])], int(coff0[0]) + ci0 - 1,
+                        int(coff0[0]) + ci0 + gap,
+                        int(res["junc_donor_strand"][i]))
+                sup, ml, mr = junctions.get(key0, (0, 0, 0))
+                junctions[key0] = (sup + 1, max(ml, ci), max(mr, tail_m))
+            cig = ""
+            if head_cig is not None:
+                cig += f"{head_cig[0]}M{head_cig[1]}N"
+            elif cli:
+                cig += f"{cli}S"
+            cig += f"{ci}M{gap}N{tail_m}M"
+            if tail_cig is not None:
+                cig += f"{tail_cig[0]}N{tail_cig[1]}M"
+            elif cri:
+                cig += f"{cri}S"
+            mism_arr[i] += mm_add
+            pos_arr[i] = new_pos
+            overrides[int(i)] = (cig, int(mism_arr[i]), int(mism_arr[i]))
+            changed = True
+        if not changed:
+            return res
+        out = dict(res)
+        out["pos"] = pos_arr
+        out["mism"] = mism_arr
+        out["cigar_override"] = overrides
+        return out
 
     def _emit_sam(
         self,
@@ -1636,10 +2293,8 @@ class Aligner:
         self, fq1: str, fq2: str, out_sam: str, chunk_reads: int = 1 << 20,
         readers=None,
     ) -> AlignSummary:
-        """Paired-end align_file: the non-junction body of the JAX
-        method (the constructor refuses junction detection).  Mate files
-        of different lengths raise ValueError where the JAX method
-        asserts."""
+        """Paired-end align_file, as the JAX method; mate files of
+        different lengths raise ValueError where the JAX method asserts."""
         summary = AlignSummary()
         rd1, rd2 = readers if readers else (FastqReader(fq1), FastqReader(fq2))
         writer = samio.make_writer(
@@ -1648,7 +2303,10 @@ class Aligner:
             sort_by_coordinates=self.cfg.sort_by_coordinates,
             rg_id=self.cfg.rg_id, rg_extra=list(self.cfg.rg_extra) or None,
         )
+        junctions: dict | None = {} if self.cfg.detect_junctions else None
+        seed_pending: dict = {}
         indel_events: dict = {}
+        breakpoints: dict | None = {} if self.cfg.all_junctions else None
 
         def read_pair():
             b1 = rd1.next_batch(chunk_reads, pad_to=self.cfg.pad_read_len)
@@ -1672,62 +2330,113 @@ class Aligner:
                 nxt_state = self.submit_batch_pe(*nxt) if nxt is not None else None
                 t1 = time.time()
                 r1, r2 = self.collect_batch_pe(state)
-                # event-table indel placement per end (same shared-event
-                # rule as the SE path; see align_file)
-                from .indelevent import (
-                    propose_and_apply, rescue_clipped_with_events,
-                    rescue_unmapped_mates,
-                )
+                if junctions is None:
+                    # event-table indel placement per end (same shared-event
+                    # rule as the SE path; see align_file)
+                    from .indelevent import (
+                        propose_and_apply, rescue_clipped_with_events,
+                        rescue_unmapped_mates,
+                    )
 
-                chunk_events: dict = {}
-                for (bb, rr) in ((pair[0], r1), (pair[1], r2)):
-                    if "probe_kv" not in rr:
-                        continue
-                    ev_new, ev_done = propose_and_apply(
-                        self.genome, bb, rr, self.cfg,
-                        anchor_mism_limit=self.cfg.max_mismatches,
-                        index_gap=self.index.index_gap,
-                    )
-                    if ev_done:
-                        rr["_events_done"] = set(ev_done)
-                    for (ss, elen), (sup, iseq) in ev_new.items():
-                        chunk_events[(int(ss), int(elen))] = (sup, iseq)
-                        ci_e, co_e = self.genome.linear_to_chro(
-                            np.asarray([ss], np.int64)
+                    chunk_events: dict = {}
+                    for (bb, rr) in ((pair[0], r1), (pair[1], r2)):
+                        if "probe_kv" not in rr:
+                            continue
+                        ev_new, ev_done = propose_and_apply(
+                            self.genome, bb, rr, self.cfg,
+                            anchor_mism_limit=self.cfg.max_mismatches,
+                            index_gap=self.index.index_gap,
                         )
-                        k_e = (int(ci_e[0]), int(co_e[0]), elen)
-                        s0, p0 = indel_events.get(k_e, (0, iseq))
-                        indel_events[k_e] = (s0 + sup, p0)
-                # record-carried events of BOTH ends also share: a
-                # mate clipped at its partner's indel boundary gets
-                # the event-crossing CIGAR (scan-2 explain_read over
-                # the shared event table, core-indel.c)
-                for (bb, rr) in ((pair[0], r1), (pair[1], r2)):
-                    ind = np.asarray(rr["indel"], np.int32)
-                    sel = np.flatnonzero(
-                        np.asarray(rr["mapped"], bool) & (ind != 0)
-                    )
-                    pos_a = np.asarray(rr["pos"], np.uint32)
-                    spl_a = np.asarray(rr["split"], np.int32)
-                    cl_a = np.asarray(rr.get("clip_l", np.zeros_like(ind)))
-                    for q in sel:
-                        # small side = last M base before the event
-                        ss = (
-                            int(pos_a[q]) + int(spl_a[q])
-                            - int(cl_a[q]) - 1
+                        if ev_done:
+                            rr["_events_done"] = set(ev_done)
+                        for (ss, elen), (sup, iseq) in ev_new.items():
+                            chunk_events[(int(ss), int(elen))] = (sup, iseq)
+                            ci_e, co_e = self.genome.linear_to_chro(
+                                np.asarray([ss], np.int64)
+                            )
+                            k_e = (int(ci_e[0]), int(co_e[0]), elen)
+                            s0, p0 = indel_events.get(k_e, (0, iseq))
+                            indel_events[k_e] = (s0 + sup, p0)
+                    # record-carried events of BOTH ends also share: a
+                    # mate clipped at its partner's indel boundary gets
+                    # the event-crossing CIGAR (scan-2 explain_read over
+                    # the shared event table, core-indel.c)
+                    for (bb, rr) in ((pair[0], r1), (pair[1], r2)):
+                        ind = np.asarray(rr["indel"], np.int32)
+                        sel = np.flatnonzero(
+                            np.asarray(rr["mapped"], bool) & (ind != 0)
                         )
-                        chunk_events.setdefault(
-                            (ss, int(ind[q])), (1, "")
+                        pos_a = np.asarray(rr["pos"], np.uint32)
+                        spl_a = np.asarray(rr["split"], np.int32)
+                        cl_a = np.asarray(rr.get("clip_l", np.zeros_like(ind)))
+                        for q in sel:
+                            # small side = last M base before the event
+                            ss = (
+                                int(pos_a[q]) + int(spl_a[q])
+                                - int(cl_a[q]) - 1
+                            )
+                            chunk_events.setdefault(
+                                (ss, int(ind[q])), (1, "")
+                            )
+                    for (bb, rr) in ((pair[0], r1), (pair[1], r2)):
+                        rescue_clipped_with_events(
+                            self.genome, bb, rr, chunk_events,
+                            max_mismatches=self.cfg.max_mismatches,
                         )
-                for (bb, rr) in ((pair[0], r1), (pair[1], r2)):
-                    rescue_clipped_with_events(
-                        self.genome, bb, rr, chunk_events,
-                        max_mismatches=self.cfg.max_mismatches,
+                    rescue_unmapped_mates(
+                        self.genome, pair[0], pair[1], r1, r2, self.cfg
                     )
-                rescue_unmapped_mates(
-                    self.genome, pair[0], pair[1], r1, r2, self.cfg
-                )
                 t2 = time.time()
+                if junctions is not None:
+                    # scan-2 event sharing + chaining, mirroring the SE
+                    # path: table junctions (this chunk + earlier chunks +
+                    # -a annotations) rescue clipped/unmapped mates
+                    prelim = dict(getattr(self, "annot_junctions", None) or {})
+                    prelim.update(junctions)
+                    collect_junctions(r1, pair[0], self.genome, prelim)
+                    collect_junctions(r2, pair[1], self.genome, prelim)
+                    collect_seed_junctions(r1, self.genome, prelim,
+                                           seed_pending)
+                    collect_seed_junctions(r2, self.genome, prelim,
+                                           seed_pending)
+                    ev_l, ev_r, donor = junction_event_arrays(
+                        self.genome, prelim
+                    )
+                    self._ev_donor = donor
+                    r1 = self.rescue_with_events(pair[0], r1, ev_l, ev_r)
+                    r2 = self.rescue_with_events(pair[1], r2, ev_l, ev_r)
+                    m1 = self._reported_mask(r1)
+                    m2 = self._reported_mask(r2)
+                    # count_primary: chained rows are skipped by the final
+                    # collect_junctions below (their split/junc_gap are
+                    # stale), so the chain counts their primary junction
+                    # here — in the pre-chain frame, where the ci-M block
+                    # genuinely sits
+                    r1 = self.chain_clipped_junctions(
+                        pair[0], r1, junctions, events=prelim,
+                        count_primary=True, mask=m1,
+                    )
+                    r2 = self.chain_clipped_junctions(
+                        pair[1], r2, junctions, events=prelim,
+                        count_primary=True, mask=m2,
+                    )
+                    collect_junctions(r1, pair[0], self.genome, junctions,
+                                      mask=m1)
+                    collect_junctions(r2, pair[1], self.genome, junctions,
+                                      mask=m2)
+                if breakpoints is not None:
+                    from .fusion import (
+                        accumulate_breakpoints, detect_fusion_pairs,
+                    )
+
+                    for bb, rr in ((pair[0], r1), (pair[1], r2)):
+                        if "vk_pos" not in rr:
+                            continue
+                        pairs_f = detect_fusion_pairs(
+                            rr, bb.lengths, self.cfg.max_indel,
+                            batch=bb, genome=self.genome,
+                        )
+                        accumulate_breakpoints(breakpoints, pairs_f)
                 self._emit_sam_pe(writer, pair[0], pair[1], r1, r2, summary,
                                   indel_events)
                 t3 = time.time()
@@ -1738,6 +2447,14 @@ class Aligner:
             rd1.close()
             rd2.close()
             writer.close()
+        if junctions is not None:
+            write_junction_bed(out_sam + ".junction.bed", junctions)
+        if breakpoints is not None:
+            from .fusion import write_breakpoints_vcf
+
+            write_breakpoints_vcf(
+                out_sam + ".breakpoints.vcf", self.genome, breakpoints
+            )
         write_indel_vcf(out_sam + ".indel.vcf", self.genome, indel_events)
         return summary
 
@@ -1756,7 +2473,10 @@ class Aligner:
             rg_id=self.cfg.rg_id,
             rg_extra=list(self.cfg.rg_extra) or None,
         )
+        junctions: dict | None = {} if self.cfg.detect_junctions else None
+        seed_pending: dict = {}
         indel_events: dict = {}
+        breakpoints: dict | None = {} if self.cfg.all_junctions else None
         try:
             t0 = time.time()
             batch = reader.next_batch(chunk_reads, pad_to=self.cfg.pad_read_len)
@@ -1772,7 +2492,7 @@ class Aligner:
                 nxt_state = self.submit_batch(nxt) if nxt is not None else None
                 t1 = time.time()
                 res = self.collect_batch(state)
-                if "probe_kv" in res:
+                if junctions is None and "probe_kv" in res:
                     # event-table indel placement: the reference derives
                     # every indel CIGAR from a SHARED event found by its
                     # banded DP (find_new_indels core-indel.c:1831); our
@@ -1813,7 +2533,7 @@ class Aligner:
                             res["mism"][i] = mm
                             if res["mapq"][i] <= 0:
                                 res["mapq"][i] = self.cfg.mapq_unique // (1 + mm)
-                if self.cfg.max_indel > 16:
+                if junctions is None and self.cfg.max_indel > 16:
                     # iteration three: long indels via soft-clip re-anchoring
                     from .longindel import rescue_long_indels
 
@@ -1834,9 +2554,37 @@ class Aligner:
                         for k, (sup, ins) in ev2.items():
                             s0, p0 = indel_events.get(k, (0, ins))
                             indel_events[k] = (s0 + sup, p0)
+                if junctions is not None:
+                    # scan-2 event-table sharing: junctions discovered in
+                    # this chunk (plus all earlier chunks, plus -a annotated
+                    # junctions) rescue reads without their own minor cluster
+                    prelim = dict(getattr(self, "annot_junctions", None) or {})
+                    prelim.update(junctions)
+                    collect_junctions(res, batch, self.genome, prelim)
+                    collect_seed_junctions(res, self.genome, prelim,
+                                           seed_pending)
+                    ev_l, ev_r, donor = junction_event_arrays(
+                        self.genome, prelim
+                    )
+                    self._ev_donor = donor
+                    res = self.rescue_with_events(batch, res, ev_l, ev_r)
+                    # chain lookups use the full event set (prelim) but
+                    # support counts land in the output table (junctions)
+                    res = self.chain_clipped_junctions(
+                        batch, res, junctions, events=prelim,
+                        mask=self._reported_mask(res),
+                    )
                 t2 = time.time()
+                if breakpoints is not None and "vk_pos" in res:
+                    from .fusion import accumulate_breakpoints, detect_fusion_pairs
+
+                    pairs = detect_fusion_pairs(
+                        res, batch.lengths, self.cfg.max_indel,
+                        batch=batch, genome=self.genome,
+                    )
+                    accumulate_breakpoints(breakpoints, pairs)
                 self._emit_sam(writer, batch, res, summary,
-                               indel_events=indel_events)
+                               junctions=junctions, indel_events=indel_events)
                 t3 = time.time()
                 summary.time_io += t_read + (t3 - t2)
                 summary.time_voting += t2 - t1
@@ -1844,6 +2592,14 @@ class Aligner:
         finally:
             reader.close()
             writer.close()
+        if junctions is not None:
+            write_junction_bed(out_sam + ".junction.bed", junctions)
+        if breakpoints is not None:
+            from .fusion import write_breakpoints_vcf
+
+            write_breakpoints_vcf(
+                out_sam + ".breakpoints.vcf", self.genome, breakpoints
+            )
         if getattr(self, "_ins_piles", None):
             # cross-read reassembly of insertions longer than any single
             # read's clip (finalise_long_insertions, core-indel.c:4389)

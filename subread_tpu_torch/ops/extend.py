@@ -1,7 +1,8 @@
 """Scan-2 realignment in PyTorch: port of `subread_tpu/ops/extend.py`.
 
-Genome windows, read orientation, the single-indel split scan and the
-reference soft-clip statistics, bit-equal to the JAX functions.  The
+Genome windows, read orientation, the single-indel split scan, the
+reference soft-clip statistics and the max-scoring soft-clip window of the
+junction scans, bit-equal to the JAX functions.  The
 packed genome is an int64 tensor of uint32 words (see
 `subread_tpu_torch.device`).  Gathers that JAX clamps are clamped here
 explicitly.
@@ -184,3 +185,27 @@ def ref_clip_stats(mm_head, mm_tail, read_len, split, indel, cov_start,
     match = non_clipped - mism - ins[:, 0]
     i32 = lambda a: a.to(torch.int32)
     return i32(head[:, 0]), i32(tail[:, 0]), i32(mism), i32(match)
+
+
+def softclip_bounds(mm: torch.Tensor, read_len: torch.Tensor):
+    """Soft-clip bounds (clip_left, clip_right) int32 [R] of a mismatch
+    profile bool [R, L]: keep the window [a, b) maximising match - 3 *
+    mismatch, with the smallest clip on both sides among ties (see the JAX
+    function; used by both junction scans)."""
+    R, L = mm.shape
+    dev = mm.device
+    inside = torch.arange(L, device=dev)[None, :] < read_len[:, None]
+    w = torch.where(inside, torch.where(mm, -3, 1), 0).to(torch.int32)
+    S = torch.nn.functional.pad(torch.cumsum(w, 1, dtype=torch.int32), (1, 0))
+    pm = torch.cummin(S, 1).values                 # min over a <= b of S[a]
+    b = torch.argmax(S - pm, dim=1)                # first maximum, as JAX
+    minv = torch.gather(pm, 1, b[:, None])
+    idx = torch.arange(L + 1, device=dev)[None, :]
+    a = torch.argmax(((S == minv) & (idx <= b[:, None])).to(torch.uint8), dim=1)
+    rl = read_len.to(torch.int64)
+    clip_left = a
+    clip_right = torch.clamp(rl - b, min=0)
+    too_much = clip_left + clip_right >= rl
+    clip_left = torch.where(too_much, 0, clip_left)
+    clip_right = torch.where(too_much, 0, clip_right)
+    return clip_left.to(torch.int32), clip_right.to(torch.int32)

@@ -9,7 +9,10 @@ saturation-rescue tiers exist) and runs of N.  Reads come from
 `subread_tpu.utils.simulate.simulate_reads` with errors and indels, single
 or paired; a share of them get N bases, written as `N` in the FASTQ.
 `synthetic_long_indel_reads` makes reads across planted 20-40 base
-deletions and 20 base insertions.
+deletions and 20 base insertions; `synthetic_spliced_reads` and
+`synthetic_spliced_pairs` make RNA-seq reads across introns at the
+genome's own splice-site motifs, with chimeras, and return the planted
+junctions and fusions.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ from subread_tpu.index.genome import Genome, build_genome
 from subread_tpu.io.fasta import Contig
 from subread_tpu.io.fastq import ReadBatch, batch_from_records
 from subread_tpu.utils.simulate import simulate_reads
+
+from .ops.junction import MAX_INTRON
 
 
 def synthetic_genome(
@@ -154,6 +159,292 @@ def synthetic_long_indel_reads(
     names += list(sim.names)
     seqs += [dna.decode(c).encode() for c in sim.codes]
     return batch_from_records(names, seqs, [b"I" * L] * len(names), pad_to=L)
+
+
+# splice-site motifs per donor strand (the .junction.bed strand column):
+# 0 = GT..AG, 1 = CT..AC; base codes A=0, G=1, C=2, T=3
+_MOTIFS = {0: ((1, 3), (0, 1)), 1: ((2, 3), (0, 2))}
+
+
+def _has_n(genome: Genome, lo: int, hi: int) -> bool:
+    """Whether linear [lo, hi) holds an N: Genome.get_ambig's answer,
+    unpacking only the bitmap bytes that cover the range."""
+    bits = np.unpackbits(genome.ambig[lo // 8: (hi + 7) // 8], bitorder="little")
+    return bool(bits[lo % 8: lo % 8 + hi - lo].any())
+
+
+def _motif_sites(cc: np.ndarray, pair) -> np.ndarray:
+    """Sorted offsets i with cc[i], cc[i+1] == pair."""
+    return np.flatnonzero((cc[:-1] == pair[0]) & (cc[1:] == pair[1]))
+
+
+def _transcripts(genome: Genome, n: int, rng, max_intron: int = 20_000,
+                 min_len: int = 300):
+    """n transcripts of 2-4 exons of 40-300 bases (half of the middle
+    exons 40-70, so reads cross two introns), each intron 60 to
+    `max_intron` bases and placed only where the genome already carries
+    the motif: GT after the left exon and AG before the right one, or CT
+    and AC.  Returns [(contig, donor_strand, [(start0, end0), ...])]."""
+    sites = {}
+    lens = np.asarray(genome.lengths, np.int64)
+    out = []
+    while len(out) < n:
+        c = int(rng.choice(len(lens), p=lens / lens.sum()))
+        ds = int(rng.integers(0, 2))
+        if (c, ds) not in sites:
+            lo = genome.chro_to_linear(c, 0)
+            cc = genome.codes[lo: lo + int(lens[c])]
+            sites[(c, ds)] = tuple(_motif_sites(cc, m) for m in _MOTIFS[ds])
+        donors, acceptors = sites[(c, ds)]
+        n_ex = int(rng.integers(2, 5))
+        pos = int(rng.integers(100, max(int(lens[c]) - 2000, 101)))
+        exons, ok = [], True
+        for e in range(n_ex):
+            middle = 0 < e < n_ex - 1
+            elen = int(rng.integers(40, 71) if middle and rng.random() < 0.5
+                       else rng.integers(40, 301))
+            if e == n_ex - 1:
+                exons.append((pos, pos + elen))
+                break
+            # left edge le: the last exon base, the donor motif at le+1
+            i = int(np.searchsorted(donors, pos + elen))
+            if i >= len(donors):
+                ok = False
+                break
+            le = int(donors[i]) - 1
+            # right edge re: the first base of the next exon, the acceptor
+            # motif at re-2
+            j = int(np.searchsorted(acceptors, le + 1 + int(rng.integers(60, max_intron + 1)) - 2))
+            if j >= len(acceptors):
+                ok = False
+                break
+            re_ = int(acceptors[j]) + 2
+            if re_ - le - 1 > max_intron or le + 1 - pos > 300:
+                ok = False
+                break
+            exons.append((pos, le + 1))
+            pos = re_
+        if not ok or exons[-1][1] > int(lens[c]) - 100:
+            continue
+        if sum(b - a for a, b in exons) < min_len:
+            continue
+        lin = [genome.chro_to_linear(c, a) for a, _ in exons]
+        if any(_has_n(genome, s, s + b - a) for s, (a, b) in zip(lin, exons)):
+            continue
+        out.append((c, ds, exons))
+    return out
+
+
+def _spliced_read(genome: Genome, tx, t: int, L: int):
+    """Bases of transcript `tx` at transcript offsets [t, t+L), their
+    0-based contig start, CIGAR, and the junction keys crossed with both
+    flank lengths: [(key, left_bases, right_bases)]."""
+    c, ds, exons = tx
+    lo = genome.chro_to_linear(c, 0)
+    segs, cig, keys = [], [], []
+    off = 0
+    for a, b in exons:
+        s, e = max(t, off), min(t + L, off + b - a)
+        if s < e:
+            g0 = a + (s - off)
+            if segs:
+                pa, pl = segs[-1]
+                cig.append(f"{g0 - (pa + pl)}N")
+                keys.append(((genome.names[c], pa + pl - 1, g0, ds),
+                             sum(x[1] for x in segs), t + L - s))
+            segs.append((g0, e - s))
+            cig.append(f"{e - s}M")
+        off += b - a
+    seq = np.concatenate([genome.codes[lo + g: lo + g + n] for g, n in segs])
+    return seq, segs[0][0], "".join(cig), keys
+
+
+def _mutate(seq: np.ndarray, rng, error_rate: float) -> np.ndarray:
+    seq = seq.copy()
+    sub = np.flatnonzero(rng.random(len(seq)) < error_rate)
+    seq[sub] = (seq[sub] + rng.integers(1, 4, len(sub))) % 4
+    return seq
+
+
+def _to_fastq_seq(seq: np.ndarray, rng, n_read_frac: float) -> bytes:
+    s = bytearray(dna.decode(seq).encode())
+    if rng.random() < n_read_frac:
+        for j in rng.integers(0, len(s), size=int(rng.integers(1, 4))):
+            s[int(j)] = ord("N")
+    return bytes(s)
+
+
+def _chimera(genome: Genome, rng, half: int):
+    """Two `half`-base pieces joined: on two contigs, more than MAX_INTRON
+    apart on one contig (where a contig is that long), or with the second
+    piece inverted a few kb downstream.  Returns the bases, a kind name and
+    the planted breakends ((contig, pos1), (contig, pos1)), 1-based."""
+    lens = np.asarray(genome.lengths, np.int64)
+    while True:
+        kind = str(rng.choice(["contig", "far", "inv"]))
+        ca = int(rng.integers(0, len(lens)))
+        a = int(rng.integers(1000, int(lens[ca]) - 1000 - half))
+        if kind == "contig" and len(lens) > 1:
+            cb = int((ca + rng.integers(1, len(lens))) % len(lens))
+            b = int(rng.integers(1000, int(lens[cb]) - 1000 - half))
+        elif kind == "far" and lens[ca] > MAX_INTRON + 4 * half + 2000:
+            cb = ca
+            b = int(rng.integers(1000, int(lens[ca]) - 1000 - half))
+            if abs(b - a) <= MAX_INTRON + 2 * half:
+                continue
+        elif kind == "inv":
+            cb, b = ca, a + half + int(rng.integers(1000, 10_000))
+            if b + half > lens[ca] - 1000:
+                continue
+        else:
+            continue
+        la, lb = genome.chro_to_linear(ca, a), genome.chro_to_linear(cb, b)
+        if _has_n(genome, la, la + half) or _has_n(genome, lb, lb + half):
+            continue
+        pa = genome.codes[la: la + half]
+        pb = genome.codes[lb: lb + half]
+        if kind == "inv":
+            pb = dna.revcomp(pb)
+            ends = ((ca, a + half), (cb, b + half))      # b + half - 1, 1-based
+        else:
+            ends = ((ca, a + half), (cb, b + 1))
+        named = tuple((genome.names[x], p) for x, p in ends)
+        return np.concatenate([pa, pb]), kind, named
+
+
+def synthetic_spliced_reads(
+    genome: Genome,
+    n_reads: int,
+    seed: int = 1,
+    read_len: int = 100,
+    n_transcripts: int | None = None,
+    error_rate: float = 0.01,
+    n_read_frac: float = 0.02,
+    short_flank_frac: float = 0.1,
+    chain_frac: float = 0.1,
+    chimera_frac: float = 0.02,
+):
+    """RNA-seq reads from transcripts of 2-4 exons whose introns sit at the
+    genome's own GT..AG or CT..AC sites (nothing is planted: the genome and
+    its index stay as they are).  Reads come from both strands with 1%
+    substitutions and N bases in `n_read_frac` of them; `short_flank_frac`
+    of them end 8-16 bases past a junction (too short to vote: the
+    event-table rescue places them), `chain_frac` cross a short middle exon
+    and two introns, and `chimera_frac` are chimeras of two 50-base halves
+    (fusions).
+
+    Each name records the truth: `sj{i}_{contig}_{pos1}_{strand}_{cigar}`
+    (the 1-based leftmost base and the CIGAR in genome orientation) or
+    `chim{i}_{kind}_{contig}_{pos1}_{contig}_{pos1}` (the two breakends).
+    Returns (batch, truth): truth["junctions"] maps each crossed junction
+    key (contig, left_edge0, right_edge0, donor_strand) to [reads, reads
+    with both flanks >= 17]; truth["fusions"] lists the planted breakend
+    pairs."""
+    rng = np.random.default_rng(seed)
+    L = read_len
+    txs = _transcripts(genome, n_transcripts or max(n_reads // 50, 4), rng)
+    names, seqs, junctions, fusions = [], [], {}, []
+    for i in range(n_reads):
+        if rng.random() < chimera_frac:
+            seq, kind, ends = _chimera(genome, rng, L // 2)
+            if rng.random() < 0.5:
+                seq = dna.revcomp(seq)
+            fusions.append(ends)
+            (ca, pa), (cb, pb) = ends
+            names.append(f"chim{i}_{kind}_{ca}_{pa}_{cb}_{pb}")
+            seqs.append(_to_fastq_seq(_mutate(seq, rng, error_rate), rng,
+                                      n_read_frac))
+            continue
+        tx = txs[int(rng.integers(0, len(txs)))]
+        ex_len = [b - a for a, b in tx[2]]
+        bnds = np.cumsum(ex_len)[:-1]                  # transcript offsets
+        T = int(sum(ex_len))
+        u = rng.random()
+        t = int(rng.integers(0, T - L + 1))
+        if u < short_flank_frac:
+            f = int(rng.integers(8, 17))
+            bnd = int(bnds[int(rng.integers(0, len(bnds)))])
+            t = bnd - f if rng.random() < 0.5 else bnd + f - L
+        elif u < short_flank_frac + chain_frac and len(ex_len) > 2:
+            k = int(rng.integers(1, len(ex_len) - 1))
+            if ex_len[k] <= L - 20:
+                t = int(bnds[k - 1]) - int(rng.integers(10, L - ex_len[k] - 9))
+        t = min(max(t, 0), T - L)
+        seq, start0, cig, keys = _spliced_read(genome, tx, t, L)
+        for key, left, right in keys:
+            n = junctions.setdefault(key, [0, 0])
+            n[0] += 1
+            n[1] += int(min(left, right) >= 17)
+        strand = int(rng.random() < 0.5)
+        if strand:
+            seq = dna.revcomp(seq)
+        names.append(f"sj{i}_{genome.names[tx[0]]}_{start0 + 1}_{strand}_{cig}")
+        seqs.append(_to_fastq_seq(_mutate(seq, rng, error_rate), rng, n_read_frac))
+    batch = batch_from_records(names, seqs, [b"I" * L] * len(names), pad_to=L)
+    return batch, dict(junctions=junctions, fusions=fusions)
+
+
+def synthetic_spliced_pairs(
+    genome: Genome,
+    n_pairs: int,
+    seed: int = 1,
+    read_len: int = 100,
+    n_transcripts: int | None = None,
+    error_rate: float = 0.01,
+    n_read_frac: float = 0.02,
+    chimera_frac: float = 0.02,
+):
+    """Paired RNA-seq reads from the transcripts of
+    `synthetic_spliced_reads`: fragments of 150-400 bases of a transcript
+    (at most its length), mate 1 from one end and mate 2 the reverse
+    complement of the other, on either strand.  `chimera_frac` of the pairs
+    have a chimeric mate 1 (two 50-base halves, as there) whose mate 2
+    lies 200-400 bases beyond its first half.  Names:
+    `sjp{i}_{contig}_{pos1}_{cigar}_{pos1}_{cigar}` (mate 1, mate 2) or
+    `chimp{i}_...` as for single reads.  Returns (mate 1 batch, mate 2
+    batch, truth) with truth as there."""
+    rng = np.random.default_rng(seed)
+    L = read_len
+    txs = _transcripts(genome, n_transcripts or max(n_pairs // 25, 4), rng)
+    names, s1, s2, junctions, fusions = [], [], [], {}, []
+    for i in range(n_pairs):
+        if rng.random() < chimera_frac:
+            seq, kind, ends = _chimera(genome, rng, L // 2)
+            (ca, pa), (cb, pb) = ends
+            c = genome.names.index(ca)
+            lin = genome.chro_to_linear(c, pa - L // 2 + int(rng.integers(200, 401)))
+            m2 = dna.revcomp(genome.codes[lin: lin + L])
+            fusions.append(ends)
+            names.append(f"chimp{i}_{kind}_{ca}_{pa}_{cb}_{pb}")
+            s1.append(_to_fastq_seq(_mutate(seq, rng, error_rate), rng, n_read_frac))
+            s2.append(_to_fastq_seq(_mutate(m2, rng, error_rate), rng, n_read_frac))
+            continue
+        tx = txs[int(rng.integers(0, len(txs)))]
+        T = int(sum(b - a for a, b in tx[2]))
+        F = min(int(rng.integers(150, 401)), T)
+        t = int(rng.integers(0, T - F + 1))
+        mates = []
+        for tt in (t, t + F - L):
+            seq, start0, cig, keys = _spliced_read(genome, tx, tt, L)
+            for key, left, right in keys:
+                n = junctions.setdefault(key, [0, 0])
+                n[0] += 1
+                n[1] += int(min(left, right) >= 17)
+            mates.append((seq, start0, cig))
+        (a, pa, ca_), (b, pb, cb_) = mates
+        if rng.random() < 0.5:        # fragment from the forward strand
+            r1, r2, first = a, dna.revcomp(b), (pa, ca_, pb, cb_)
+        else:
+            r1, r2, first = b, dna.revcomp(a), (pb, cb_, pa, ca_)
+            r1, r2 = dna.revcomp(r1), dna.revcomp(r2)
+        names.append(f"sjp{i}_{genome.names[tx[0]]}_{first[0] + 1}_{first[1]}"
+                     f"_{first[2] + 1}_{first[3]}")
+        s1.append(_to_fastq_seq(_mutate(r1, rng, error_rate), rng, n_read_frac))
+        s2.append(_to_fastq_seq(_mutate(r2, rng, error_rate), rng, n_read_frac))
+    quals = [b"I" * L] * len(names)
+    return (batch_from_records(names, s1, quals, pad_to=L),
+            batch_from_records(names, s2, quals, pad_to=L),
+            dict(junctions=junctions, fusions=fusions))
 
 
 def _with_n(batch: ReadBatch, rng, n_read_frac: float, read_len: int) -> ReadBatch:

@@ -5,9 +5,10 @@
 
 Takes subread_tpu's option set (`subread_tpu.tools.align.build_parser`,
 which imports no JAX) plus `--device` (default `cuda`, which must be
-present: there is no fall-back to the CPU).  The exon annotation (-a) and
---sv/--longDel, which need junction detection, are not ported yet and are
-refused with an error.
+present: there is no fall-back to the CPU).  --sv/--longDel/--SVdetection
+switch on junction and breakpoint detection (`.junction.bed`,
+`.breakpoints.vcf`), and -a/-A preload annotated junctions, as in
+subread_tpu.  `run_align` also serves `tools.subjunc`.
 """
 
 from __future__ import annotations
@@ -31,20 +32,14 @@ def main(argv=None) -> int:
     return 0
 
 
-def config_from_args(args):
+def config_from_args(args, subjunc: bool = False):
     """The AlignConfig subread_tpu's run_align builds from the same options
-    (subread_tpu/tools/align.py:172-223); raises for what is not ported."""
-    from subread_tpu.config import aligner_config
+    (subread_tpu/tools/align.py:172-223): subjunc's defaults or
+    subread-align's, --allJunctions and --minMappedFraction where the
+    parser has them, and --sv/--longDel/--SVdetection switching on junction
+    and breakpoint detection for subread-align."""
+    from subread_tpu.config import aligner_config, subjunc_config
 
-    if args.sv or args.longDel or args.SVdetection:
-        raise NotImplementedError(
-            "--sv/--longDel/--SVdetection are not ported to subread_tpu_torch yet"
-        )
-    if args.exonAnnotation:
-        raise NotImplementedError(
-            "-a (known junctions for subjunc) is not ported to "
-            "subread_tpu_torch yet"
-        )
     overrides = dict(
         max_indel=args.max_indel,
         max_mismatches=args.max_mismatches,
@@ -57,17 +52,17 @@ def config_from_args(args):
         rg_id=args.rg_id,
         rg_extra=tuple(args.rg),
         multi_best=args.multi_best,
-        all_junctions=False,
+        all_junctions=getattr(args, "allJunctions", False),
         report_multi_mapping=(args.multiMapping or args.multi_best > 1)
         and not args.unique,
         ignore_unmapped=args.ignoreUnmapped,
         min_mapped_length=args.minMappedLength,
-        min_mapped_fraction=0,
+        min_mapped_fraction=getattr(args, "minMappedFraction", 0),
         mate_orientation=args.order,
         dp_mismatch=args.DPMismatch, dp_match=args.DPMatch,
         dp_gap_open=args.DPGapOpen, dp_gap_ext=args.DPGapExt,
     )
-    if args.type == 1:
+    if not subjunc and args.type == 1:
         overrides["is_rna_seq"] = False
     if args.subreads is not None:
         overrides["total_subreads"] = args.subreads
@@ -84,7 +79,11 @@ def config_from_args(args):
     if args.fast:
         overrides["top_k"] = 1
         overrides["multi_best"] = 1
-    return aligner_config(**overrides)
+    if (args.sv or args.longDel or args.SVdetection) and not subjunc:
+        # --sv/--longDel set do_breakpoint_detection (core-indel.c:4405)
+        overrides["detect_junctions"] = True
+        overrides["all_junctions"] = True
+    return (subjunc_config if subjunc else aligner_config)(**overrides)
 
 
 def read_format(args) -> str | None:
@@ -125,18 +124,47 @@ def open_readers_pe(args):
     )
 
 
-def run_align(args) -> dict:
-    """Align as the options say; returns the AlignSummary's fields plus the
-    wall time of each step (index load, upload to the device, align_file)."""
+def load_annotated_junctions(args) -> dict:
+    """-a/-A: the exon annotation's junctions, with its chromosome names
+    mapped through the alias CSV (subread_tpu/tools/align.py:238-259)."""
+    from subread_tpu.io.gtf import load_annotation
+
+    from ..align.pipeline import known_junctions_from_annotation
+
+    ann = load_annotation(
+        args.exonAnnotation, fmt=args.exonFormat,
+        feature_type=args.gtfFeature, attr_type=args.gtfAttr,
+    )
+    if args.exonAlias:
+        amap = {}
+        for line in open(args.exonAlias):
+            line = line.strip()
+            if line and "," in line:
+                a, b = line.split(",", 1)
+                amap[a] = b
+        ann.feat_chro = [amap.get(c, c) for c in ann.feat_chro]
+    return known_junctions_from_annotation(ann)
+
+
+def run_align(args, subjunc: bool = False) -> dict:
+    """Align as the options say (subjunc's defaults when `subjunc`);
+    returns the AlignSummary's fields plus the wall time of each step
+    (index load, upload to the device, align_file)."""
     from ..align.pipeline import Aligner
     from ..device import resolve_device
 
     t0 = time.time()
     device = resolve_device(args.device)
-    cfg = config_from_args(args)
+    cfg = config_from_args(args, subjunc)
     genome, index = load_index_any(args.index)
     t1 = time.time()
     aligner = Aligner(genome, index, cfg, device=device)
+    if args.exonAnnotation:
+        aligner.annot_junctions = load_annotated_junctions(args)
+        print(
+            f"// Loaded {len(aligner.annot_junctions)} annotated junctions "
+            f"from {args.exonAnnotation}", file=sys.stderr,
+        )
     t2 = time.time()
     if getattr(args, "pairedSAM", False) and read_format(args) and not args.reads2:
         args.reads2 = args.reads    # --pairedSAM: one SAM/BAM holds both mates

@@ -198,14 +198,19 @@ def test_cli_matches_jax(jax_run):
 
 
 def test_unported_options_raise(genome, index):
+    """Every subread-align option is ported; what raises is --device cuda
+    without a card."""
     from dataclasses import replace
 
-    for extra in (["--sv"], ["--longDel"], ["-a", "x.gtf"]):
-        with pytest.raises(NotImplementedError):
-            cli_config(*extra)
-    with pytest.raises(NotImplementedError):
-        Aligner(genome, index, replace(cli_config(), detect_junctions=True),
-                device="cpu")
+    # --sv/--longDel/--SVdetection switch on junction and breakpoint
+    # detection, as subread_tpu's run_align does; -a is taken
+    for extra in (["--sv"], ["--longDel"], ["--SVdetection"]):
+        cfg = cli_config(*extra)
+        assert cfg.detect_junctions and cfg.all_junctions
+    assert not cli_config("-a", "x.gtf").detect_junctions
+    al = Aligner(genome, index, replace(cli_config(), detect_junctions=True),
+                 device="cpu")
+    assert al.cfg.detect_junctions
     # paired-end input and the long-indel rescue (-I > 16) are ported
     assert cli_config("-R", "r2.fq").max_indel == 5
     al = Aligner(genome, index, cli_config("-I", "20"), device="cpu")
