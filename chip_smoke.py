@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--genome-mb 100] [--reads 200000] [--pairs 100000]
                           [--spliced-reads 100000] [--spliced-pairs 50000]
+                          [--long-reads 300] [--cell-pairs 200000]
                           [--seed 7]
 
 Phases; each one passes or ends the run with a non-zero exit:
@@ -68,15 +69,54 @@ Phases; each one passes or ends the run with a non-zero exit:
  10. subjunc with --allJunctions and -a (a GTF of planted junctions) on the
      first 8192 spliced reads and 4096 spliced pairs, on the CPU and on the
      card: identical SAM records, .junction.bed, .breakpoints.vcf and
-     .indel.vcf.
+     .indel.vcf;
+ 11. sublong through its CLI (`python -m subread_tpu_torch.tools.sublong
+     ... --device cuda`) on long reads of 2-20 kb (2% substitutions and
+     one-base indels, both strands, a fifth across a planted 300-base
+     deletion; synth.synthetic_long_reads): every read in the SAM, the
+     mapped share, the share within 1200 bp of its simulated start, the
+     share of planted deletions written as a D or an N of at least 250
+     bases, the kernel launched; the kernel against its plain version at
+     sublong's shapes (2048 windows x 20 probes, H=16, and its tiers'
+     wide shapes), as in phase 2; reads/s, windows/s and the host seconds
+     of chaining; then the first 100 reads through sublong_file on the CPU
+     and on the card, with sublong's options and with -X's: identical SAM
+     records;
+ 12. featureCounts on a GTF of synthetic genes at GENCODE's density
+     (about 20 genes and 500 exon rows per Mb, multi-exon transcripts,
+     genes overlapping on both strands; synth.synthetic_genes): phase 3's
+     SAM with -s 0 and -s 1, phase 5's with -p --countReadPairs, through
+     the CLI with the host engine, with --deviceCounts --device cuda and
+     with --deviceCounts --device cpu.  The card's count and summary files
+     equal the CPU's, single-end they equal the host engine's, and the
+     stderr line shows the device counted; paired, the two engines differ
+     as the JAX package's do (a gene hit by both mates beats one hit by
+     one in the host engine; the device counter calls such fragments
+     ambiguous), and only so.  DeviceCounter.count on the card equals it
+     on the CPU in counts, summary and per-read status; its time on
+     phase 3's sections repeated 10 times, by CUDA events and by the
+     host clock on the same calls, beside the host engine's seconds on
+     the same records;
+ 13. cellCounts in FASTQ mode through its CLI (`python -m
+     subread_tpu_torch.tools.cellcounts ... --cellCalling --device cuda`)
+     on single-cell read pairs (R1 a 16-base barcode and a 12-base UMI,
+     cells drawn from a whitelist five times their number, R2 100 bases
+     of phase 12's transcripts, 1% errors; synth.synthetic_cell_reads):
+     cells called, the share of the planted cells called, the share of
+     R2 reads assigned to a gene, the kernel launched; the kernel against
+     its plain version at cellCounts' shapes (2048 reads x 28 probes,
+     H=16, and its tiers' wide shapes); then the first 8192 pairs on the
+     CPU and on the card: identical matrix.mtx, barcodes.tsv and
+     features.tsv.
 
-The thresholds of phases 8 and 9 come from a CPU run of the JAX package on
-the same seeds at a small size (PERF.md).  Every path's kernel launches are
-counted from 0 just before it is driven and read just after; the counts
-are printed on one line.  It prints the card's `nvidia-smi
+The thresholds of phases 8, 9, 11 and 13 come from a CPU run of the
+package on the same seeds at a small size (PERF.md).  Every path's kernel
+launches are counted from 0 just before it is driven and read just after;
+the counts are printed on one line.  It prints the card's `nvidia-smi
 --query-gpu=name,power.limit` line and a JSON line describing the kernel,
-whose launches are those of the four main paths (phases 3, 5, 8 and 9)
-and whose times and bound are phase 2's at the main shape: ms and
+whose launches are those of the four main paths (phases 3, 5, 8 and 9;
+sublong's and cellCounts' are beside them under launches_by_path) and
+whose times and bound are phase 2's at the main shape: ms and
 plain_ms per call, device_ms and plain_device_ms on the card (library_ms
 is null: no single PyTorch call computes this function), then as its last
 line {"ok": true, "device": {...}}.  With no card it exits non-zero at
@@ -86,6 +126,8 @@ once.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import re
 import shutil
@@ -102,6 +144,10 @@ KERNEL_REPLACES = "subread_tpu/ops/pallas_probe.py:36"
 SUBJUNC_MIN = dict(mapped=0.9, spliced_share=0.8, recall=0.9, precision=0.9)
 SUBJUNC_PE_MIN = dict(mapped=0.9, proper=0.4, spliced_share=0.8, recall=0.9,
                       precision=0.9, fusions=0.6)
+# lower bounds of phases 11 (sublong) and 13 (cellCounts), set below the
+# port's figures on the CPU on the same generators (PERF.md)
+SUBLONG_MIN = dict(mapped=0.95, near_truth=0.9, deletions=0.6)
+CELLCOUNTS_MIN = dict(cells_found=0.9, assigned=0.5)
 
 
 def fail(msg: str) -> None:
@@ -304,6 +350,70 @@ def write_gtf(path, junctions) -> None:
                         f'gene_id "g{n}"; transcript_id "t{n}";\n')
 
 
+def long_read_metrics(sam, n_reads: int) -> dict:
+    """What phase 11 checks on a sublong SAM: the records, the mapped
+    share, the share of mapped reads within 1200 bp of the start their
+    name records (synth.synthetic_long_reads), and the share of reads
+    across a planted deletion whose CIGAR has a D or an N of at least 250
+    bases."""
+    recs = [r.split("\t", 6) for r in sam_records(sam)]
+    mapped = [f for f in recs if not int(f[1]) & 4]
+    near = dels = planted = 0
+    for f in recs:
+        _, contig, pos1, _, dl = f[0].split("_")
+        planted += dl != "0"
+        if int(f[1]) & 4:
+            continue
+        near += f[2] == contig and abs(int(f[3]) - int(pos1)) <= 1200
+        gap = any(int(n) >= 250 for n, op in re.findall(r"(\d+)([DN])", f[5]))
+        dels += dl != "0" and gap
+    return dict(records=len(recs), mapped=len(mapped) / n_reads,
+                near_truth=near / max(len(mapped), 1),
+                deletions=dels / max(planted, 1), planted=planted)
+
+
+def fc_files(out: Path) -> tuple[list[int], dict]:
+    """A featureCounts run's per-gene counts (the count file's last column)
+    and its summary rows."""
+    counts = [int(r.rsplit("\t", 1)[1]) for r in out.read_text().splitlines()[2:]]
+    summary = {}
+    for r in Path(str(out) + ".summary").read_text().splitlines()[1:]:
+        k, v = r.split("\t")
+        summary[k] = int(v)
+    return counts, summary
+
+
+def pe_vote_gap(host: Path, device: Path) -> int:
+    """How the JAX package's two engines differ on paired fragments, and
+    the port's with them: the host engine lets a gene hit by both mates
+    beat one hit by a single mate, the device counter calls every fragment
+    over two genes ambiguous.  Fails unless every other summary row is
+    equal and the host engine assigns exactly the fragments the device
+    calls ambiguous beyond its own ambiguous ones, never fewer per gene;
+    returns their number."""
+    hc, hs = fc_files(host)
+    dc, ds = fc_files(device)
+    moved = hs["Assigned"] - ds["Assigned"]
+    check(moved == ds["Unassigned_Ambiguity"] - hs["Unassigned_Ambiguity"] >= 0
+          and all(hs[k] == ds[k] for k in hs
+                  if k not in ("Assigned", "Unassigned_Ambiguity"))
+          and all(a >= b for a, b in zip(hc, dc)) and sum(hc) - sum(dc) == moved,
+          "phase 12: paired host and device counts differ beyond the "
+          "two-mates vote rule")
+    return moved
+
+
+def run_quiet(main, argv) -> str:
+    """main(argv) with its stderr captured (and echoed); fails unless it
+    returns 0.  Returns the stderr text."""
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = main(argv)
+    sys.stderr.write(err.getvalue())
+    check(rc == 0, f"{main.__module__} returned {rc}")
+    return err.getvalue()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--genome-mb", type=float, default=100.0)
@@ -311,30 +421,46 @@ def main() -> int:
     ap.add_argument("--pairs", type=int, default=100_000)
     ap.add_argument("--spliced-reads", type=int, default=100_000)
     ap.add_argument("--spliced-pairs", type=int, default=50_000)
+    ap.add_argument("--long-reads", type=int, default=300)
+    ap.add_argument("--cell-pairs", type=int, default=200_000)
     ap.add_argument("--seed", type=int, default=7)
     args = ap.parse_args()
+    t_start = time.time()
 
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
     sys.path.insert(0, str(ROOT))
-    from subread_tpu_torch import cuda_build, native
+    import numpy as np
+
+    from subread_tpu_torch import cuda_build, dna, native
+    from subread_tpu_torch.align import longread
     from subread_tpu_torch.align.pipeline import (
         Aligner, junction_event_arrays, uniform_length,
     )
+    from subread_tpu_torch.config import subjunc_config
+    from subread_tpu_torch.device import resolve_device, upload
     from subread_tpu_torch.index.build import build_hash_index
-    from subread_tpu_torch.io.fastq import ReadBatch
+    from subread_tpu_torch.io.fastq import ReadBatch, batch_from_records
+    from subread_tpu_torch.io.gtf import load_annotation
     from subread_tpu_torch.ops import probe
     from subread_tpu_torch.probe_bench import smoke_shapes
+    from subread_tpu_torch.quant import cellcounts
+    from subread_tpu_torch.quant.device_count import STATUS_NAMES, DeviceCounter
+    from subread_tpu_torch.quant.featurecounts import FCOptions, FeatureCounter
     from subread_tpu_torch.synth import (
-        synthetic_genome, synthetic_long_indel_reads, synthetic_pairs,
+        synthetic_cell_reads, synthetic_genes, synthetic_genome,
+        synthetic_long_indel_reads, synthetic_long_reads, synthetic_pairs,
         synthetic_reads, synthetic_spliced_pairs, synthetic_spliced_reads,
-        write_fastq,
+        write_fastq, write_genes_gtf,
     )
     from subread_tpu_torch.timing import first_block_vote, host_seconds, stage_ms
     from subread_tpu_torch.tools import align as align_cli
+    from subread_tpu_torch.tools import cellcounts as cc_cli
+    from subread_tpu_torch.tools import featurecounts as fc_cli
     from subread_tpu_torch.tools import subjunc as subjunc_cli
+    from subread_tpu_torch.tools import sublong as sublong_cli
 
     # ---- phase 0: toolchain facts ------------------------------------
     card = sh("nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader")
@@ -739,6 +865,253 @@ def main() -> int:
           f".junction.bed ({len(bed_junctions(str(outs['cpu'][0]) + '.junction.bed'))} "
           f"and {len(bed_junctions(str(outs['cpu'][1]) + '.junction.bed'))} rows), "
           f".breakpoints.vcf and .indel.vcf")
+
+    # ---- phase 11: sublong through its CLI -----------------------------
+    t = time.time()
+    lr = synthetic_long_reads(genome, args.long_reads, seed=args.seed + 6)
+    fq11 = work / "long.fq"
+    write_fastq(str(fq11), lr)
+    n_win = int((lr.lengths // 100).clip(min=1).sum())
+    print(f"phase 11: set-up: {len(lr)} long reads, {int(lr.lengths.sum())} "
+          f"bases, {n_win} windows, "
+          f"{sum(not n.endswith('_0') for n in lr.names)} across a planted "
+          f"deletion ({time.time() - t:.1f}s)")
+    sam11 = work / "long.sam"
+    argv = ["-i", prefix, "-r", str(fq11), "-o", str(sam11), "--SAMoutput",
+            "--device", "cuda"]
+    steps = [(Aligner, "submit_batch", "submit_batch"),
+             (Aligner, "collect_batch", "collect_batch"),
+             (longread, "chain_read", "chain_read"),
+             (longread, "banded_align", "banded_align")]
+    probe.probe_hits.launches = 0
+    with host_seconds(steps) as secs11:
+        run = sublong_cli.run_sublong(sublong_cli.build_parser().parse_args(argv))
+        torch.cuda.synchronize()
+    launches["sublong (phase 11)"] = probe.probe_hits.launches
+    m11 = long_read_metrics(sam11, len(lr))
+    check(m11["records"] == len(lr) and run["total"] == len(lr),
+          f"phase 11: {m11['records']} records for {len(lr)} long reads")
+    for k, lo in SUBLONG_MIN.items():
+        check(m11[k] >= lo, f"phase 11: {k} {m11[k]:.4f} < {lo}")
+    check(launches["sublong (phase 11)"] > 0,
+          "sublong never launched the probe_hits kernel")
+    print(f"phase 11: {len(lr)} long reads, mapped {m11['mapped']:.4f}, "
+          f"{m11['near_truth']:.4f} of them within 1200 bp of the truth, "
+          f"{m11['deletions']:.4f} of {m11['planted']} planted 300-base "
+          f"deletions as a D or N >= 250; "
+          f"{launches['sublong (phase 11)']} kernel launches; "
+          f"{len(lr) / run['time_map']:.1f} reads/s, "
+          f"{n_win / run['time_map']:.1f} windows/s over sublong_file "
+          f"({run['time_map']:.2f}s; index load and upload "
+          f"{run['time_load']:.2f}s); host seconds in {steps_line(secs11)}")
+    al11 = Aligner(genome_l, index_l, sublong_cli.sublong_config(
+        sublong_cli.build_parser().parse_args(argv)), device=dev)
+    bs = al11.cfg.batch_reads
+    win = [lr.codes[i, w * 100:(w + 1) * 100]
+           for i in range(len(lr)) for w in range(int(lr.lengths[i]) // 100)][:bs]
+    wb = batch_from_records([f"w{k}" for k in range(len(win))],
+                            [dna.decode(c).encode() for c in win],
+                            [b"I" * 100] * len(win), pad_to=al11.cfg.pad_read_len)
+    cap = al11.rescue_fold_cap
+    t11, err11 = kernel_against_plain(
+        "phase 11", al11, al11._upload_reads(wb.codes, wb.ambig, wb.lengths),
+        al11.vote_params, smoke_shapes(al11, bs, subjunc=False, tag="sublong-",
+                                       tier_rows=(cap, max(cap // 8, 256))))
+    timings.update(t11)
+    max_err = max(max_err, err11)
+    del al11
+    torch.cuda.empty_cache()
+    n11 = min(100, len(lr))
+    fq11h = work / "long100.fq"
+    head_fastq(fq11, fq11h, n11)
+    for rna in ([], ["-X"]):
+        cfg11 = sublong_cli.sublong_config(sublong_cli.build_parser().parse_args(
+            ["-i", prefix, "-r", "-", "-o", "-", *rna]))
+        outs = {}
+        for d in ("cpu", "cuda"):
+            t = time.time()
+            outs[d] = work / f"p11{''.join(rna)}_{d}.sam"
+            longread.sublong_file(Aligner(genome_l, index_l, cfg11,
+                                          device=dev if d == "cuda" else d),
+                                  str(fq11h), str(outs[d]), sam_output=True)
+            print(f"phase 11: {n11} long reads {' '.join(rna)} on {d} in "
+                  f"{time.time() - t:.1f}s")
+        check(sam_records(outs["cpu"]) == sam_records(outs["cuda"]),
+              f"phase 11: SAM records {' '.join(rna)} differ between cpu and cuda")
+        print(f"phase 11: cpu and cuda agree on {len(sam_records(outs['cpu']))} "
+              f"SAM records {' '.join(rna)}")
+
+    # ---- phase 12: featureCounts, host engine and --deviceCounts ---------
+    t = time.time()
+    genes = synthetic_genes(genome, max(int(20 * args.genome_mb), 20),
+                            seed=args.seed + 7)
+    gtf12 = work / "genes.gtf"
+    n_rows = write_genes_gtf(str(gtf12), genes)
+    ann = load_annotation(str(gtf12))
+    print(f"phase 12: set-up: {len(genes)} genes, {n_rows} exon rows "
+          f"({time.time() - t:.1f}s)")
+    fc_runs = {"single-end -s 0": (sam, ["-s", "0"], 0, False),
+               "single-end -s 1": (sam, ["-s", "1"], 1, False),
+               "paired-end -p --countReadPairs": (
+                   sam5, ["-p", "--countReadPairs"], 0, True)}
+    for k, (name, (inp, extra, strand, paired)) in enumerate(fc_runs.items()):
+        outs, secs = {}, {}
+        for engine in ("host", "cuda", "cpu"):
+            outs[engine] = work / f"fc{k}_{engine}.txt"
+            flags = (["--device", "cuda"] if engine == "host"
+                     else ["--deviceCounts", "--device", engine])
+            t = time.time()
+            err = run_quiet(fc_cli.main, ["-a", str(gtf12), "-o", str(outs[engine]),
+                                          *extra, *flags, str(inp)])
+            secs[engine] = time.time() - t
+            if engine == "host":
+                check("counted on" not in err,
+                      f"phase 12: {name}: the host engine's run counted on a device")
+            else:
+                line = f"// deviceCounts: {inp} counted on {resolve_device(engine)}"
+                check(line in err, f"phase 12: {name}: the {engine} run's stderr "
+                      f"lacks {line!r}")
+        files = {e: (o.read_bytes(), Path(str(o) + ".summary").read_bytes())
+                 for e, o in outs.items()}
+        check(files["cuda"] == files["cpu"],
+              f"phase 12: {name}: --deviceCounts files differ between cuda and cpu")
+        if paired:
+            moved = pe_vote_gap(outs["host"], outs["cuda"])
+            verdict = (f"equal to the cpu's; against the host engine {moved} "
+                       f"fragments move from Assigned to Ambiguity (the two-mates "
+                       f"vote rule), nothing else differs")
+        else:
+            check(files["cuda"] == files["host"],
+                  f"phase 12: {name}: --deviceCounts files differ from the host engine's")
+            verdict = "byte-equal to the host engine's and to the cpu's"
+        dcs = [DeviceCounter(ann, strand=strand, max_sections=20 if paired else 10,
+                             device=d) for d in (dev, "cpu")]
+        secs12 = (dcs[0].fragments_from_file if paired else dcs[0].sections_from_file)(str(inp))
+        got = [dc.count(*secs12) for dc in dcs]
+        for a, b in zip(*got):
+            check(np.array_equal(a, b) and getattr(a, "dtype", 0) == getattr(b, "dtype", 0),
+                  f"phase 12: {name}: DeviceCounter.count differs between cuda and cpu")
+        summary12 = fc_files(outs["cuda"])[1]
+        print(f"phase 12: {name}: --deviceCounts --device cuda files {verdict}; "
+              f"DeviceCounter.count equal on cuda and cpu in counts, summary and "
+              f"{len(got[0][2])} statuses; assigned {summary12['Assigned']} of "
+              f"{sum(summary12.values())}; seconds host engine {secs['host']:.2f}, "
+              f"--deviceCounts cuda {secs['cuda']:.2f}, cpu {secs['cpu']:.2f}")
+    # DeviceCounter.count on phase 3's sections repeated 10 times
+    dc = DeviceCounter(ann, device=dev)
+    base = dc.sections_from_file(str(sam))
+    rep = tuple(np.ascontiguousarray(np.tile(a, (10,) + (1,) * (a.ndim - 1)))
+                for a in base)
+    R12 = len(rep[2])
+    cnt_ev, cnt_wall = stage_ms(lambda: dc.count(*rep), 10)
+    up = tuple(upload(a, dev) for a in rep)
+    ker_ev, ker_wall = stage_ms(lambda: dc._kernel(*up), 10)
+    del up
+    sam10 = work / "x10.sam"
+    with open(sam, "rb") as f:
+        raw = f.read()
+    cut = raw.index(b"\n", raw.rindex(b"\n@")) + 1 if raw.startswith(b"@") else 0
+    with open(sam10, "wb") as f:
+        f.write(raw[:cut])
+        for _ in range(10):
+            f.write(raw[cut:])
+    del raw
+    t = time.time()
+    fc = FeatureCounter(ann, FCOptions())
+    fc.count_file(str(sam10))
+    host_s = time.time() - t
+    t = time.time()
+    secs_x10 = dc.sections_from_file(str(sam10))
+    parse_s = time.time() - t
+    out_x10 = dc.count(*secs_x10)
+    check(np.array_equal(out_x10[0], fc.counts.astype(np.int32))
+          and out_x10[1].tolist() == [fc.summary[n] for n in STATUS_NAMES],
+          "phase 12: DeviceCounter on the 10x records differs from the host engine")
+    print(f"phase 12: DeviceCounter.count on {R12} records x {rep[0].shape[1]} "
+          f"sections (phase 3's, 10 times), medians of the same timed calls (CUDA "
+          f"events / host clock to a synchronise): count with upload and read-back "
+          f"{cnt_ev:.4f} / {cnt_wall:.4f} ms, _kernel on tensors on the card "
+          f"{ker_ev:.4f} / {ker_wall:.4f} ms (10 calls each); on the same records "
+          f"from a SAM: the host engine (FeatureCounter, native "
+          f"{native.get_lib() is not None}) {host_s:.3f}s, the device path's "
+          f"parse (sections_from_file) {parse_s:.3f}s; counts equal")
+    del rep, secs_x10
+    sam10.unlink()
+
+    # ---- phase 13: cellCounts, FASTQ mode, through its CLI -------------
+    t = time.time()
+    wl, c1, c2, cells = synthetic_cell_reads(genome, genes, args.cell_pairs,
+                                             seed=args.seed + 8)
+    wl13 = work / "whitelist.txt"
+    wl13.write_text("\n".join(wl) + "\n")
+    f131, f132 = work / "cell_r1.fq", work / "cell_r2.fq"
+    write_fastq(str(f131), c1)
+    write_fastq(str(f132), c2)
+    print(f"phase 13: set-up: {len(c1)} read pairs, {len(cells)} cells of a "
+          f"{len(wl)}-barcode whitelist ({time.time() - t:.1f}s)")
+    cc_args = ["-i", prefix, "-a", str(gtf12), "-c", str(wl13), "--umi-len", "12"]
+    steps = [(Aligner, "submit_batch", "submit_batch"),
+             (Aligner, "collect_batch", "collect_batch"),
+             (cellcounts, "select_annotated_candidates", "select_annotated_candidates"),
+             (cellcounts, "assign_genes_batch", "assign_genes_batch"),
+             (cellcounts.BatchCellCounter, "add_batch", "barcode match (add_batch)"),
+             (cellcounts.BatchCellCounter, "write_matrix", "UMI merge, cell calling, write")]
+    probe.probe_hits.launches = 0
+    t = time.time()
+    with host_seconds(steps) as secs13:
+        err = run_quiet(cc_cli.main, cc_args + [
+            "-r", str(f131), "-R", str(f132), "-o", str(work / "cc"),
+            "--cellCalling", "--device", "cuda"])
+        torch.cuda.synchronize()
+    t13 = time.time() - t
+    launches["cellCounts (phase 13)"] = probe.probe_hits.launches
+    st = re.search(r"(\d+) reads, (\d+) barcode-matched, (\d+) assigned", err)
+    n_reads, n_bc, n_assigned = (int(x) for x in st.groups())
+    called = (work / "cc" / "barcodes.tsv").read_text().split()
+    planted = {wl[c] for c in cells}
+    m13 = dict(cells_found=len(planted & set(called)) / len(planted),
+               assigned=n_assigned / n_reads)
+    check(n_reads == len(c1), f"phase 13: {n_reads} reads counted of {len(c1)}")
+    for k, lo in CELLCOUNTS_MIN.items():
+        check(m13[k] >= lo, f"phase 13: {k} {m13[k]:.4f} < {lo}")
+    check(launches["cellCounts (phase 13)"] > 0,
+          "cellCounts never launched the probe_hits kernel")
+    print(f"phase 13: {n_reads} read pairs, {n_bc / n_reads:.4f} barcode-matched, "
+          f"{m13['assigned']:.4f} of R2 reads assigned to a gene; {len(called)} "
+          f"cells called, {m13['cells_found']:.4f} of the {len(planted)} planted "
+          f"cells among them ({len(planted & set(called)) / max(len(called), 1):.4f} "
+          f"of the called are planted); "
+          f"{launches['cellCounts (phase 13)']} kernel launches; "
+          f"{n_reads / t13:.1f} pairs/s through the CLI ({t13:.2f}s with the index "
+          f"load); host seconds in {steps_line(secs13)}")
+    cfg13 = subjunc_config(batch_reads=2048, report_multi_mapping=True, multi_best=8)
+    al13 = Aligner(genome_l, index_l, cfg13, device=dev)
+    bs, cap = cfg13.batch_reads, al13.rescue_fold_cap
+    t13k, err13 = kernel_against_plain(
+        "phase 13", al13, al13._upload_reads(c2.codes[:bs], c2.ambig[:bs],
+                                             c2.lengths[:bs]),
+        al13.vote_params, smoke_shapes(al13, bs, subjunc=True, tag="cellcounts-",
+                                       tier_rows=(cap, max(cap // 8, 256))))
+    timings.update(t13k)
+    max_err = max(max_err, err13)
+    del al13
+    torch.cuda.empty_cache()
+    n13 = min(8192, len(c1))
+    f1h, f2h = work / "cell_r1_8k.fq", work / "cell_r2_8k.fq"
+    head_fastq(f131, f1h, n13)
+    head_fastq(f132, f2h, n13)
+    for d in ("cpu", "cuda"):
+        t = time.time()
+        run_quiet(cc_cli.main, cc_args + ["-r", str(f1h), "-R", str(f2h),
+                                          "-o", str(work / f"p13_{d}"),
+                                          "--cellCalling", "--device", d])
+        print(f"phase 13: {n13} pairs on {d} in {time.time() - t:.1f}s")
+    for f in ("matrix.mtx", "barcodes.tsv", "features.tsv"):
+        check((work / "p13_cpu" / f).read_bytes() == (work / "p13_cuda" / f).read_bytes(),
+              f"phase 13: {f} differs between cpu and cuda")
+    print(f"phase 13: cpu and cuda agree on matrix.mtx, barcodes.tsv and "
+          f"features.tsv ({len((work / 'p13_cpu' / 'barcodes.tsv').read_text().split())} "
+          f"cells)")
     print(f"probe_hits launches per path: {json.dumps(launches)}")
     shutil.rmtree(work, ignore_errors=True)
 
@@ -748,11 +1121,14 @@ def main() -> int:
                   "paired-end": launches["paired-end (phase 5)"],
                   "subjunc": launches["subjunc (phase 8)"],
                   "subjunc-pe": launches["subjunc-pe (phase 9)"]}
+    print(f"chip_smoke: phases 0-13 passed in {time.time() - t_start:.1f}s")
     print(card)
     print(json.dumps({"kernels": [{
         "name": "probe_hits", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": sum(main_paths.values()),
-        "launches_by_path": main_paths,
+        "launches_by_path": {**main_paths,
+                             "sublong": launches["sublong (phase 11)"],
+                             "cellcounts": launches["cellCounts (phase 13)"]},
         "max_abs_err": max_err, "ms": ms_k, "plain_ms": ms_r,
         "device_ms": dev_k, "plain_device_ms": dev_r,
         "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,

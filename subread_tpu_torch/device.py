@@ -55,6 +55,18 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
     return ((x * 0x01010101) & U32_MASK) >> 24
 
 
+def floor_log2(n: torch.Tensor) -> torch.Tensor:
+    """floor(log2 n) of positive int32 values, in n's dtype: JAX's
+    `31 - lax.clz(n)` (torch has no clz op), by five halving steps, exact
+    for every n in [1, 2**31)."""
+    k = torch.zeros_like(n)
+    for s in (16, 8, 4, 2, 1):
+        big = n >= (1 << s)
+        n = torch.where(big, n >> s, n)
+        k = torch.where(big, k + s, k)
+    return k
+
+
 def upload(a, device: torch.device) -> torch.Tensor:
     """numpy array -> tensor on `device`.  To a card the copy goes through
     pinned memory without blocking, so the host can queue the next batch's

@@ -1,5 +1,5 @@
-"""What chip_smoke.py (phases 2 and 8) and profile_probe_hits.py measure of
-the probe_hits kernel: its inputs at the smoke's six shapes, drawn from a
+"""What chip_smoke.py (phases 2, 8, 11 and 13) and profile_probe_hits.py
+measure of the probe_hits kernel: its inputs at the smoke's shapes, drawn from a
 real vote's probes, and the bytes it must move on them, which give its
 bound at the card's memory rate."""
 
@@ -16,17 +16,20 @@ from .ops.vote import probe_inputs
 HBM_BYTES_PER_S = 3.35e12
 
 
-def smoke_shapes(al, rows: int, subjunc: bool) -> list[tuple]:
+def smoke_shapes(al, rows: int, subjunc: bool, tag: str | None = None,
+                 tier_rows: tuple[int, int] = (4096, 512)) -> list[tuple]:
     """The three shapes at which the smoke holds the kernel to its plain
-    version, for an Aligner al with subread-align's options (phase 2) or
+    version, for an Aligner al with subread-align's probes (phase 2) or
     subjunc's (phase 8): the main pass (rows reads, all probes, H = max_hits,
-    offsets per probe) and the rescue tiers' wide shapes (H =
-    rescue_hits).  Each is (name, rows, probes, H, shared_off) for
-    probe_shapes."""
-    tag = "subjunc-" if subjunc else ""
+    offsets per probe) and the rescue tiers' wide shapes (H = rescue_hits)
+    at tier_rows reads, the tiers' capacities at batch_reads 8192.  Each
+    is (name, rows, probes, H, shared_off) for probe_shapes; names start
+    with tag (default "subjunc-" for subjunc's probes, else "")."""
+    if tag is None:
+        tag = "subjunc-" if subjunc else ""
     return [(f"{tag}main", rows, None, al.vote_params.max_hits, True),
-            (f"{tag}wide-mixed", 4096, 8, al.rescue_hits, False),
-            (f"{tag}wide-full", 512, None, al.rescue_hits, subjunc)]
+            (f"{tag}wide-mixed", tier_rows[0], 8, al.rescue_hits, False),
+            (f"{tag}wide-full", tier_rows[1], None, al.rescue_hits, subjunc)]
 
 
 def probe_shapes(al, batch, vp, shapes):

@@ -12,7 +12,11 @@ or paired; a share of them get N bases, written as `N` in the FASTQ.
 deletions and 20 base insertions; `synthetic_spliced_reads` and
 `synthetic_spliced_pairs` make RNA-seq reads across introns at the
 genome's own splice-site motifs, with chimeras, and return the planted
-junctions and fusions.
+junctions and fusions.  `synthetic_long_reads` makes sublong's 2-20 kb
+reads, some across a planted deletion; `synthetic_genes` and
+`write_genes_gtf` an annotation of multi-exon, multi-transcript genes at
+GENCODE's density; `synthetic_cell_reads` 10x-like barcode/UMI and cDNA
+read pairs from those genes.
 """
 
 from __future__ import annotations
@@ -469,3 +473,201 @@ def write_fastq(path: str, batch: ReadBatch, suffix: str = "") -> None:
             seq[batch.ambig[i, :L]] = ord("N")
             q = batch.quals[i, :L].tobytes().decode()
             f.write(f"@{name}{suffix}\n{seq.tobytes().decode()}\n+\n{q}\n")
+
+
+def _long_read_errors(seq: np.ndarray, rng, error_rate: float) -> np.ndarray:
+    """`seq` with `error_rate` of its bases hit: 60% substitutions, 20%
+    one-base deletions, 20% one-base insertions after the base."""
+    u = rng.random(len(seq))
+    sub = u < 0.6 * error_rate
+    dele = (u >= 0.6 * error_rate) & (u < 0.8 * error_rate)
+    ins = (u >= 0.8 * error_rate) & (u < error_rate)
+    seq = seq.copy()
+    seq[sub] = (seq[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+    # each base is written 0 (deleted), 1 or 2 times; the second copy of
+    # an inserting base is replaced by a random one
+    reps = 1 - dele.astype(np.int64) + ins
+    out = np.repeat(seq, reps)
+    ends = np.cumsum(reps)
+    at = ends[ins] - 1
+    out[at] = rng.integers(0, 4, len(at))
+    return out
+
+
+def synthetic_long_reads(
+    genome: Genome,
+    n_reads: int,
+    seed: int = 1,
+    min_len: int = 2000,
+    max_len: int = 20_000,
+    error_rate: float = 0.02,
+    del_frac: float = 0.2,
+    del_len: int = 300,
+) -> ReadBatch:
+    """Long reads of `min_len`-`max_len` genome bases (uniform), from both
+    strands, with `error_rate` substitutions and one-base indels
+    (`_long_read_errors`); `del_frac` of them skip `del_len` genome bases
+    a quarter to three quarters of the way along.  Names record the truth:
+    `lr<i>_<contig>_<pos1>_<strand>_<del>`, pos1 the 1-based contig position
+    of the first genome base covered, strand 1 for a reverse-complemented
+    read, del the 1-based position of the first deleted base or 0.  No
+    read covers an N.  Qualities are all 'I'."""
+    rng = np.random.default_rng(seed)
+    lens = np.asarray(genome.lengths, np.int64)
+    names, seqs = [], []
+    while len(seqs) < n_reads:
+        L = int(rng.integers(min_len, max_len + 1))
+        c = int(rng.choice(len(lens), p=lens / lens.sum()))
+        gap = del_len if rng.random() < del_frac else 0
+        span = L + gap
+        if lens[c] < span + 2000:
+            continue
+        pos = int(rng.integers(1000, int(lens[c]) - span - 1000))
+        lin = genome.chro_to_linear(c, pos)
+        if _has_n(genome, lin, lin + span):
+            continue
+        seg = genome.codes[lin: lin + span]
+        at = 0
+        if gap:
+            at = int(rng.integers(L // 4, 3 * L // 4))
+            seg = np.concatenate([seg[:at], seg[at + gap:]])
+        seg = _long_read_errors(seg, rng, error_rate)
+        strand = int(rng.integers(0, 2))
+        if strand:
+            seg = dna.revcomp(seg)
+        names.append(f"lr{len(seqs)}_{genome.names[c]}_{pos + 1}_{strand}_"
+                     f"{pos + at + 1 if gap else 0}")
+        seqs.append(dna.decode(seg).encode())
+    return batch_from_records(names, seqs, [b"I" * len(s) for s in seqs])
+
+
+def synthetic_genes(
+    genome: Genome,
+    n_genes: int,
+    seed: int = 1,
+    exons: tuple[int, int] = (8, 16),
+    transcripts: tuple[int, int] = (2, 4),
+    antisense_frac: float = 0.1,
+):
+    """`n_genes` genes with the shape of a GENCODE annotation: each a chain
+    of `exons` (low, high) exons of 80-400 bases across introns of 100-5000
+    bases placed where the genome carries the splice motifs of the gene's
+    strand (GT..AG on '+', CT..AC on '-'), and `transcripts` (low, high)
+    transcripts, each the first and last exon plus about 70% of the
+    others, so a gene has about 25 exon rows; genes start at random, and
+    `antisense_frac` of them inside an earlier gene, on the other strand.
+    Returns [(gene_id, contig, strand '+'/'-', [[(start0, end0), ...] per
+    transcript])]."""
+    rng = np.random.default_rng(seed)
+    lens = np.asarray(genome.lengths, np.int64)
+    sites = {}
+    genes = []
+    while len(genes) < n_genes:
+        if genes and rng.random() < antisense_frac:
+            _, c0, s0, tx0 = genes[int(rng.integers(0, len(genes)))]
+            c, ds = genome.names.index(c0), int(s0 == "+")
+            pos = int(rng.integers(tx0[0][0][0], tx0[0][-1][1]))
+        else:
+            c = int(rng.choice(len(lens), p=lens / lens.sum()))
+            ds = int(rng.integers(0, 2))
+            pos = int(rng.integers(1000, int(lens[c]) - 1000))
+        if (c, ds) not in sites:
+            lo = genome.chro_to_linear(c, 0)
+            cc = genome.codes[lo: lo + int(lens[c])]
+            sites[(c, ds)] = tuple(_motif_sites(cc, m) for m in _MOTIFS[ds])
+        donors, acceptors = sites[(c, ds)]
+        chain = []
+        for e in range(int(rng.integers(exons[0], exons[1] + 1))):
+            elen = int(rng.integers(80, 401))
+            i = int(np.searchsorted(donors, pos + elen))
+            j = (int(np.searchsorted(acceptors, int(donors[i]) + int(rng.integers(100, 5001))))
+                 if i < len(donors) else len(acceptors))
+            if j >= len(acceptors) or donors[i] - pos > 400:
+                chain.append((pos, pos + elen))
+                break
+            chain.append((pos, int(donors[i])))
+            pos = int(acceptors[j]) + 2
+        lin = genome.chro_to_linear(c, chain[0][0])
+        if (len(chain) < 2 or chain[-1][1] > int(lens[c]) - 1000
+                or _has_n(genome, lin, lin + chain[-1][1] - chain[0][0])):
+            continue
+        txs = []
+        for _ in range(int(rng.integers(transcripts[0], transcripts[1] + 1))):
+            keep = rng.random(len(chain)) < 0.7
+            keep[0] = keep[-1] = True
+            txs.append([ex for ex, k in zip(chain, keep) if k])
+        genes.append((f"G{len(genes):05d}", genome.names[c], "+-"[ds], txs))
+    return genes
+
+
+def write_genes_gtf(path: str, genes) -> int:
+    """A GTF of `synthetic_genes`' genes: one exon row per exon of each
+    transcript, 1-based inclusive; returns the number of rows."""
+    n = 0
+    with open(path, "w") as f:
+        for gid, contig, strand, txs in genes:
+            for t, tx in enumerate(txs):
+                for a, b in tx:
+                    f.write(f'{contig}\tsynth\texon\t{a + 1}\t{b}\t.\t{strand}\t.\t'
+                            f'gene_id "{gid}"; transcript_id "{gid}.{t}";\n')
+                    n += 1
+    return n
+
+
+def synthetic_cell_reads(
+    genome: Genome,
+    genes,
+    n_pairs: int,
+    seed: int = 1,
+    n_cells: int = 1000,
+    n_whitelist: int = 5000,
+    bc_len: int = 16,
+    umi_len: int = 12,
+    read_len: int = 100,
+    error_rate: float = 0.01,
+    ambient_frac: float = 0.05,
+):
+    """Single-cell read pairs (10x-like): R1 = a `bc_len`-base cell barcode
+    and a `umi_len`-base UMI; R2 = `read_len` bases of a transcript of one
+    of `genes` (`synthetic_genes`), spliced where it crosses exon edges,
+    on either strand.  `n_cells` barcodes of an `n_whitelist` whitelist
+    are cells (read counts lognormal); `ambient_frac` of the pairs carry
+    one of the other whitelist barcodes.  Each molecule (cell, gene, UMI)
+    is read 1-3 times; `error_rate` substitutions in both reads.  Names
+    record the truth: `sc<i>_<cell>_<gene>`, cell the whitelist index.
+    Returns (whitelist, R1 batch, R2 batch, indices of the cells)."""
+    rng = np.random.default_rng(seed)
+    wl = rng.integers(0, 4, size=(n_whitelist, bc_len)).astype(np.uint8)
+    whitelist = [dna.decode(b) for b in wl]
+    cells = rng.choice(n_whitelist, size=n_cells, replace=False)
+    ambient = np.setdiff1d(np.arange(n_whitelist), cells)
+    weight = rng.lognormal(0.0, 0.5, n_cells)
+    gw = rng.lognormal(0.0, 1.0, len(genes))
+    tx_seqs = []
+    for _, contig, strand, txs in genes:
+        c = genome.names.index(contig)
+        lo = genome.chro_to_linear(c, 0)
+        tx_seqs.append([np.concatenate([genome.codes[lo + a: lo + b] for a, b in tx])
+                        for tx in txs])
+    names, r1s, r2s = [], [], []
+    while len(names) < n_pairs:
+        cell = int(ambient[rng.integers(0, len(ambient))] if rng.random() < ambient_frac
+                   else cells[rng.choice(n_cells, p=weight / weight.sum())])
+        g = int(rng.choice(len(genes), p=gw / gw.sum()))
+        tx = tx_seqs[g][int(rng.integers(0, len(tx_seqs[g])))]
+        if len(tx) < read_len:
+            continue
+        t = int(rng.integers(0, len(tx) - read_len + 1))
+        umi = rng.integers(0, 4, umi_len).astype(np.uint8)
+        strand = int(rng.integers(0, 2))
+        for _ in range(min(int(rng.integers(1, 4)), n_pairs - len(names))):
+            r2 = tx[t: t + read_len]
+            r2 = _mutate(dna.revcomp(r2) if strand else r2, rng, error_rate)
+            r1 = _mutate(np.concatenate([wl[cell], umi]), rng, error_rate)
+            names.append(f"sc{len(names)}_{cell}_{genes[g][0]}")
+            r1s.append(dna.decode(r1).encode())
+            r2s.append(dna.decode(r2).encode())
+    q1 = [b"I" * (bc_len + umi_len)] * n_pairs
+    q2 = [b"I" * read_len] * n_pairs
+    return (whitelist, batch_from_records(names, r1s, q1),
+            batch_from_records(names, r2s, q2), np.sort(cells))

@@ -3,7 +3,10 @@ originals, on the same seeded inputs: FASTA and genome, the hash index
 (full, gapped, split into blocks), index files written by either package
 and read by the other, read sources, the read simulator, SAM text and the
 native host library (through it and through its pure-Python fallback),
-read packing, the indel DP and the command-line options."""
+read packing, the indel DP and the command-line options; featureCounts'
+host engine (native and pure Python, SAM and BAM, single-end and paired)
+and its native wrappers; cellCounts' barcode matcher, UMI merge and cell
+calling; sublong's banded alignment and chaining."""
 
 import dataclasses
 import gzip
@@ -13,25 +16,33 @@ import pytest
 
 import subread_tpu.native as jnative
 from subread_tpu import dna as jdna
+from subread_tpu.align import longread as jlong
 from subread_tpu.align import indelevent as jindel
 from subread_tpu.index import build as jbuild
 from subread_tpu.index import genome as jgenome
 from subread_tpu.index import interop as jinterop
 from subread_tpu.io import fasta as jfasta
 from subread_tpu.io import fastq as jfastq
+from subread_tpu.io import gtf as jgtf
 from subread_tpu.io import sam as jsam
+from subread_tpu.quant import cellcounts as jcc
+from subread_tpu.quant import featurecounts as jfc
 from subread_tpu.tools import align as jalign
 from subread_tpu.tools import buildindex as jbuildindex
 from subread_tpu.utils import simulate as jsim
 import subread_tpu_torch.native as tnative
 from subread_tpu_torch import dna as tdna
+from subread_tpu_torch.align import longread as tlong
 from subread_tpu_torch.align import indelevent as tindel
 from subread_tpu_torch.index import build as tbuild
 from subread_tpu_torch.index import genome as tgenome
 from subread_tpu_torch.index import interop as tinterop
 from subread_tpu_torch.io import fasta as tfasta
 from subread_tpu_torch.io import fastq as tfastq
+from subread_tpu_torch.io import gtf as tgtf
 from subread_tpu_torch.io import sam as tsam
+from subread_tpu_torch.quant import cellcounts as tcc
+from subread_tpu_torch.quant import featurecounts as tfc
 from subread_tpu_torch.tools import align as talign
 from subread_tpu_torch.tools import buildindex as tbuildindex
 from subread_tpu_torch.tools import subjunc as tsubjunc
@@ -40,10 +51,12 @@ from subread_tpu_torch.utils import simulate as tsim
 # each package as one namespace, so a test can run either side
 JAX = dict(native=jnative, dna=jdna, indel=jindel, build=jbuild,
            genome=jgenome, interop=jinterop, fasta=jfasta, fastq=jfastq,
-           sam=jsam, align=jalign, buildindex=jbuildindex, sim=jsim)
+           sam=jsam, align=jalign, buildindex=jbuildindex, sim=jsim,
+           gtf=jgtf, fc=jfc, cc=jcc, long=jlong)
 PORT = dict(native=tnative, dna=tdna, indel=tindel, build=tbuild,
             genome=tgenome, interop=tinterop, fasta=tfasta, fastq=tfastq,
-            sam=tsam, align=talign, buildindex=tbuildindex, sim=tsim)
+            sam=tsam, align=talign, buildindex=tbuildindex, sim=tsim,
+            gtf=tgtf, fc=tfc, cc=tcc, long=tlong)
 SIDES = {"jax": JAX, "port": PORT}
 BASES = np.frombuffer(b"ACGT", np.uint8)
 
@@ -400,3 +413,170 @@ def test_build_parser_same_namespace(argv, subjunc):
     full = (tsubjunc if subjunc else talign).build_parser().parse_args(argv)
     extra = {k: v for k, v in vars(full).items() if k not in vars(j.parse_args(argv))}
     assert extra.get("device") == "cuda"
+
+
+@pytest.fixture(scope="module")
+def fc_inputs(tmp_path_factory):
+    """test_torch_device_count's random GTF and SAMs, and each SAM as BAM."""
+    from test_torch_device_count import write_gtf, write_sam
+
+    d = tmp_path_factory.mktemp("fc")
+    rng = np.random.default_rng(31)
+    out = dict(gtf=write_gtf(d / "g.gtf", rng), se=write_sam(d / "se.sam", rng, n=1500),
+               pe=write_sam(d / "pe.sam", rng, n=800, paired=True))
+    for kind in ("se", "pe"):
+        lines = [ln.rstrip("\n").split("\t") for ln in open(out[kind])]
+        sq = [f for f in lines if f[0] == "@SQ"]
+        with tsam.make_writer(str(d / f"{kind}.bam"), [f[1][3:] for f in sq],
+                              [int(f[2][3:]) for f in sq], sam_output=False) as w:
+            for f in lines:
+                if f[0].startswith("@"):
+                    continue
+                w.write(tsam.SamRecord(f[0], int(f[1]), f[2], int(f[3]), int(f[4]), f[5],
+                                       f[6], int(f[7]), int(f[8]), "A" * 75 if f[5] != "*" else "*",
+                                       "I" * 75 if f[5] != "*" else "*", f[11:]))
+        out[kind + "-bam"] = str(d / f"{kind}.bam")
+    return out
+
+
+FC_OPTS = {
+    "default": {},
+    "stranded-mapq": dict(strand=1, min_mapq=10, primary_only=True),
+    "python-only": dict(strand=2, allow_multi_overlap=True, count_multi=True,
+                        fraction=True, min_overlap=5),
+}
+
+
+@pytest.mark.parametrize("opts", list(FC_OPTS))
+@pytest.mark.parametrize("kind", ["se", "pe", "se-bam", "pe-bam"])
+def test_feature_counter_equal(fc_inputs, native_mode, kind, opts):
+    """FeatureCounter's counts and summary, through the native passes and
+    through the pure-Python engine."""
+    paired = kind.startswith("pe")
+    got = {}
+    for side, m in SIDES.items():
+        fc = m["fc"].FeatureCounter(
+            m["gtf"].load_annotation(fc_inputs["gtf"]),
+            m["fc"].FCOptions(paired=paired, count_read_pairs=paired, **FC_OPTS[opts]))
+        fc.count_file(fc_inputs[kind])
+        got[side] = (fc.counts, dict(fc.summary))
+    assert_same(got["jax"], got["port"], kind)
+    assert got["port"][0].sum() > 0
+
+
+def test_fc_native_wrappers_equal(fc_inputs, native_mode):
+    """Each fc_* wrapper on the arguments FeatureCounter and DeviceCounter
+    give it (recorded from the JAX package's engine), in both packages."""
+    calls = []
+
+    def recording(name, fn):
+        def wrapper(*a, **kw):
+            calls.append((name, a, kw))
+            return fn(*a, **kw)
+        return wrapper
+
+    import subread_tpu.quant.device_count as jdc
+    names = ["fc_count_sam_simple", "fc_count_bam_simple", "fc_count_sam_pe",
+             "fc_count_bam_pe", "fc_read_sections_sam", "fc_read_sections_bam"]
+    saved = {n: getattr(jnative, n) for n in names}
+    try:
+        for n in names:
+            setattr(jnative, n, recording(n, saved[n]))
+        for kind in ("se", "pe", "se-bam", "pe-bam"):
+            paired = kind.startswith("pe")
+            kind_file = fc_inputs[kind]
+            ann = jgtf.load_annotation(fc_inputs["gtf"])
+            jfc.FeatureCounter(ann, jfc.FCOptions(
+                paired=paired, count_read_pairs=paired)).count_file(fc_inputs[kind])
+            if native_mode == "native" or kind_file.endswith(".sam"):
+                # without the library, DeviceCounter parses SAM text only
+                dc = jdc.DeviceCounter(ann)
+                (dc.fragments_from_file if paired else dc.sections_from_file)(fc_inputs[kind])
+    finally:
+        for n in names:
+            setattr(jnative, n, saved[n])
+    if native_mode == "native":
+        assert {c[0] for c in calls} == set(names)
+    for name, a, kw in calls:
+        assert_same(getattr(jnative, name)(*a, **kw), getattr(tnative, name)(*a, **kw), name)
+    from subread_tpu_torch.io.bam import BamReader
+    rd = BamReader(fc_inputs["se-bam"])
+    cuts = [m["native"].fc_bam_split_offsets(rd._data, rd._off, 3) for m in SIDES.values()]
+    assert cuts[0] == cuts[1]
+    assert (cuts[1] is None) == (native_mode == "fallback")
+
+
+def test_barcode_matcher_umi_merge_and_cell_calling_equal():
+    rng = np.random.default_rng(37)
+    wl = ["".join(rng.choice(list("ACGT"), 16)) for _ in range(300)]
+    queries = [wl[int(i)] for i in rng.integers(0, 300, 400)]
+    queries = [q[:j] + "ACGT"[(("ACGT".index(q[j])) + 1) % 4] + q[j + 1:]
+               if k % 3 == 0 else q
+               for k, (q, j) in enumerate(zip(queries, rng.integers(0, 16, 400)))]
+    queries += ["".join(rng.choice(list("ACGT"), 16)) for _ in range(50)]
+    got = {side: [m["cc"].BarcodeMatcher(wl).match(q) for q in queries]
+           for side, m in SIDES.items()}
+    assert got["jax"] == got["port"] and min(got["port"]) == -1
+    codes = np.asarray([[jdna.encode(q)[i] for i in range(16)] for q in queries], np.uint8)
+    assert_same(jcc.BatchBarcodeMatcher(wl).match_batch(codes),
+                tcc.BatchBarcodeMatcher(wl).match_batch(codes), "match_batch")
+    umis = {"".join(rng.choice(list("ACGT"), 10)): int(rng.integers(1, 9)) for _ in range(200)}
+    base = list(umis)[:20]
+    for u in base:      # hamming-1 neighbours to merge
+        umis[u[:-1] + ("A" if u[-1] != "A" else "C")] = 1
+    assert jcc.hamming1_umi_merge(dict(umis)) == tcc.hamming1_umi_merge(dict(umis))
+    cells = {i: int(10_000 + rng.integers(0, 2000)) for i in range(50)}
+    cells.update({i: int(rng.integers(10, 70)) for i in range(50, 950)})
+    cells.update({950: 600, 951: 520})
+    for cut in (None, 500):
+        assert_same(jcc.call_cells(dict(cells), cut), tcc.call_cells(dict(cells), cut), "call")
+
+
+def test_banded_align_and_chain_read_equal(genomes):
+    g = genomes["jax"].codes
+    rng = np.random.default_rng(41)
+    for k in range(30):
+        a = int(rng.integers(0, len(g) - 500))
+        gen = g[a: a + int(rng.integers(50, 400))]
+        read = np.delete(gen, rng.integers(0, len(gen), int(rng.integers(0, 6))))
+        read = np.insert(read, rng.integers(0, len(read), int(rng.integers(0, 6))), 2)
+        assert jlong.banded_align(read, gen) == tlong.banded_align(read, gen)
+        assert (jlong.banded_align(read, gen, extra_band=40)
+                == tlong.banded_align(read, gen, extra_band=40))
+    # chain_read over a hand-made window result: two strands, a chain with
+    # a 300-base gap, a decoy window and an unmapped one
+    n = 40
+    wins = np.arange(n)
+    st = (rng.random(n) < 0.15).astype(np.int8)
+    pos = np.where(wins < 20, 10_000 + 100 * wins, 10_300 + 100 * wins)
+    pos = np.where(st == 1, 90_000 - 100 * wins, pos).astype(np.uint32)
+    res = dict(mapped=rng.random(n) < 0.95, pos=pos, strand=st,
+               votes=rng.integers(2, 10, n).astype(np.int16),
+               clip_l=rng.integers(0, 3, n).astype(np.int16))
+    L = n * 100 + 37
+    codes = rng.integers(0, 4, L).astype(np.uint8)
+    for kw in ({}, dict(codes=codes, gcodes=g)):
+        hit = {side: m["long"].chain_read(res, np.arange(n), wins, L, 2, **kw)
+               for side, m in SIDES.items()}
+        assert hit["jax"].__dict__ == hit["port"].__dict__
+        assert hit["port"].mapped and hit["port"].n_windows >= 20
+
+
+@pytest.mark.parametrize("argv", [
+    ["-a", "g.gtf", "-o", "c.txt", "in.sam"],
+    ["-a", "g.saf", "-F", "SAF", "-o", "c.txt", "-p", "--countReadPairs", "-B", "-C",
+     "-P", "-d", "40", "-D", "900", "-M", "--primary", "-Q", "7", "-s", "1,2", "-f",
+     "-O", "--minOverlap", "3", "--fracOverlap", "0.2", "--largestOverlap",
+     "--read2pos", "5", "--readExtension5", "4", "--readExtension3", "2",
+     "--ignoreDup", "--fraction", "--maxMOp", "12", "--splitOnly", "-J", "-G", "g.fa",
+     "-T", "4", "--extraAttributes", "gene_name", "--byReadGroup", "-R", "CORE",
+     "--Rpath", "d", "--deviceCounts", "--scSampleSheet", "s.csv", "--scCellBarcodeFile",
+     "b.txt", "a.sam", "b.bam"],
+], ids=["minimal", "many"])
+def test_featurecounts_parser_same_namespace(argv):
+    from subread_tpu.tools import featurecounts as jfcli
+    from subread_tpu_torch.tools import featurecounts as tfcli
+
+    j = vars(jfcli.build_parser().parse_args(argv))
+    t = vars(tfcli.build_parser().parse_args(argv))
+    assert t.pop("device") == "cuda" and j == t

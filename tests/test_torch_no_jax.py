@@ -3,11 +3,17 @@ the card has none) and imports nothing of the JAX package: in a subprocess
 where `import jax` and `import subread_tpu` both fail, import every module
 of the port, build an index with the port's own builder, and align 64
 reads, then 64 pairs (-R), on the CPU through the CLI; then run subjunc
-with --allJunctions on 64 spliced reads and on 64 spliced pairs."""
+with --allJunctions on 64 spliced reads and on 64 spliced pairs, sublong on
+4 long reads, featureCounts with --deviceCounts on the aligned reads, and
+cellCounts on 200 read pairs.  Each new CLI refuses --device cuda where
+no card is present, --deviceCounts included."""
 
 import os
 import subprocess
 import sys
+
+import pytest
+import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -25,7 +31,9 @@ from subread_tpu_torch.index.build import build_hash_index
 from subread_tpu_torch.synth import (
     synthetic_genome, synthetic_pairs, synthetic_reads,
     synthetic_spliced_pairs, synthetic_spliced_reads, write_fastq)
-from subread_tpu_torch.tools import align, subjunc
+from subread_tpu_torch.synth import (
+    synthetic_cell_reads, synthetic_genes, synthetic_long_reads, write_genes_gtf)
+from subread_tpu_torch.tools import align, cellcounts, featurecounts, subjunc, sublong
 d = tempfile.mkdtemp()
 p = lambda name: os.path.join(d, name)
 g = synthetic_genome(60_000, seed=2)
@@ -45,6 +53,25 @@ write_fastq(p("s2.fq"), s2)
 sj = ["-i", p("idx"), "--device", "cpu", "--allJunctions"]
 subjunc.main(sj + ["-r", p("s.fq"), "-o", p("sj.sam")])
 subjunc.main(sj + ["-r", p("s1.fq"), "-R", p("s2.fq"), "-o", p("sjp.sam")])
+write_fastq(p("lr.fq"), synthetic_long_reads(g, 4, seed=7, max_len=5000))
+sublong.main(["-i", p("idx"), "-r", p("lr.fq"), "-o", p("lr.sam"), "--SAMoutput",
+              "--device", "cpu"])
+genes = synthetic_genes(g, 4, seed=8, exons=(2, 3))
+write_genes_gtf(p("g.gtf"), genes)
+featurecounts.main(["--deviceCounts", "--device", "cpu", "-a", p("g.gtf"),
+                    "-o", p("fc.txt"), p("o.sam")])
+wl, c1, c2, _ = synthetic_cell_reads(g, genes, 200, seed=9, n_cells=5, n_whitelist=20)
+open(p("wl.txt"), "w").write("\n".join(wl) + "\n")
+write_fastq(p("c1.fq"), c1)
+write_fastq(p("c2.fq"), c2)
+cellcounts.main(["-i", p("idx"), "-r", p("c1.fq"), "-R", p("c2.fq"), "-a", p("g.gtf"),
+                 "-c", p("wl.txt"), "-o", p("cc"), "--umi-len", "12", "--device", "cpu"])
+lr = [l for l in open(p("lr.sam")) if not l.startswith("@")]
+fc_total = sum(int(l.split()[-1]) for l in open(p("fc.txt.summary"))
+               if not l.startswith("Status"))
+cc_umis = sum(int(l.split()[2]) for l in open(p("cc/matrix.mtx")).readlines()[2:])
+print(len(lr), sum(1 for r in lr if int(r.split()[1]) & 4 == 0), fc_total, cc_umis,
+      end=" ")
 recs = [l for l in open(p("o.sam")) if not l.startswith("@")]
 pe = [l for l in open(p("pe.sam")) if not l.startswith("@")]
 sj_recs = [l for l in open(p("sj.sam")) if not l.startswith("@")]
@@ -67,9 +94,14 @@ def test_port_imports_and_aligns_without_jax():
         timeout=300, cwd=REPO, env={**os.environ, "OMP_NUM_THREADS": "1"},
     )
     assert proc.returncode == 0, proc.stderr
-    (n_mods, n_recs, n_mapped, n_pe, n_pe_mapped, n_proper, n_sj, n_bed,
-     n_sjp, n_bed_pe, loaded) = proc.stdout.split(maxsplit=10)
+    (n_lr, n_lr_mapped, n_fc, n_cc, n_mods, n_recs, n_mapped, n_pe, n_pe_mapped,
+     n_proper, n_sj, n_bed, n_sjp, n_bed_pe, loaded) = proc.stdout.split(maxsplit=14)
     assert int(n_mods) >= 13
+    # sublong, featureCounts --deviceCounts on the 64 aligned reads,
+    # cellCounts' deduplicated UMIs
+    assert int(n_lr) == 4 and int(n_lr_mapped) >= 3
+    assert int(n_fc) == 64 and int(n_cc) > 0
+    assert "deviceCounts" in proc.stderr and "counted on cpu" in proc.stderr
     assert int(n_recs) == 64 and int(n_mapped) >= 50
     assert int(n_pe) == 128 and int(n_pe_mapped) >= 100
     assert int(n_proper) >= 90
@@ -79,3 +111,35 @@ def test_port_imports_and_aligns_without_jax():
     # only the placeholders this script planted: nothing imported JAX or
     # any module of the JAX package
     assert loaded.strip() == "['jax', 'subread_tpu']"
+
+
+NEW_CLIS = {
+    "sublong": ["-i", "{d}/idx", "-r", "{d}/r.fq", "-o", "{d}/o.sam"],
+    "featurecounts": ["-a", "{d}/g.gtf", "-o", "{d}/fc.txt", "{d}/r.sam"],
+    "featurecounts --deviceCounts": ["--deviceCounts", "-a", "{d}/g.gtf",
+                                     "-o", "{d}/fc.txt", "{d}/r.sam"],
+    "cellcounts": ["-i", "{d}/idx", "-r", "{d}/r.fq", "-R", "{d}/r.fq", "-a", "{d}/g.gtf",
+                   "-c", "{d}/wl.txt", "-o", "{d}/cc"],
+}
+
+
+@pytest.mark.parametrize("explicit", [False, True], ids=["default", "--device-cuda"])
+@pytest.mark.parametrize("cli", list(NEW_CLIS))
+def test_new_clis_refuse_cuda_without_a_card(tmp_path, cli, explicit):
+    """sublong, featureCounts (with and without --deviceCounts) and
+    cellCounts raise when the card they default to (or are given) is absent,
+    before they read or write a file: nothing runs on the CPU or on the
+    host counter instead."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    from subread_tpu_torch.tools import cellcounts, featurecounts, sublong
+
+    (tmp_path / "g.gtf").write_text('chr1\tx\texon\t10\t90\t.\t+\t.\tgene_id "G";\n')
+    (tmp_path / "r.sam").write_text("@SQ\tSN:chr1\tLN:500\nr\t0\tchr1\t20\t30\t50M\t*\t0\t0\tA\tI\n")
+    argv = [a.format(d=tmp_path) for a in NEW_CLIS[cli]]
+    argv += ["--device", "cuda"] if explicit else []
+    main = dict(sublong=sublong, featurecounts=featurecounts,
+                cellcounts=cellcounts)[cli.split()[0]].main
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        main(argv)
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["g.gtf", "r.sam"]
