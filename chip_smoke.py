@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--genome-mb 100] [--reads 200000] [--pairs 100000]
                           [--spliced-reads 100000] [--spliced-pairs 50000]
                           [--long-reads 300] [--cell-pairs 200000]
+                          [--snp-region-mb 2]
                           [--seed 7]
 
 Phases; each one passes or ends the run with a non-zero exit:
@@ -79,7 +80,7 @@ Phases; each one passes or ends the run with a non-zero exit:
      bases, the kernel launched; the kernel against its plain version at
      sublong's shapes (2048 windows x 20 probes, H=16, and its tiers'
      wide shapes), as in phase 2; reads/s, windows/s and the host seconds
-     of chaining; then the first 100 reads through sublong_file on the CPU
+     of chaining; then the first 25 reads through sublong_file on the CPU
      and on the card, with sublong's options and with -X's: identical SAM
      records;
  12. featureCounts on a GTF of synthetic genes at GENCODE's density
@@ -105,18 +106,43 @@ Phases; each one passes or ends the run with a non-zero exit:
      cells called, the share of the planted cells called, the share of
      R2 reads assigned to a gene, the kernel launched; the kernel against
      its plain version at cellCounts' shapes (2048 reads x 28 probes,
-     H=16, and its tiers' wide shapes); then the first 8192 pairs on the
+     H=16, and its tiers' wide shapes); then the first 4096 pairs on the
      CPU and on the card: identical matrix.mtx, barcodes.tsv and
-     features.tsv.
+     features.tsv;
+ 14. exactSNP on a diploid sample (synth.synthetic_snp_sample: one planted
+     SNP per kb in 2 Mb of the first contig, half heterozygous, 30x of
+     100 bp reads with 1% errors from either haplotype, about 600,000
+     reads): aligned through the CLI on the card with BAM out (the
+     kernel launched), the genome written as FASTA, `python -m
+     subread_tpu_torch.tools.exactsnp` over the whole BAM (its seconds),
+     the recall of homozygous and of heterozygous planted SNPs and the
+     precision; on the first 20,000 reads, over the first contig, the
+     native pileup's VCF equal to the Python record path's; subindel's
+     output on the whole BAM; propmapped (whose counts must equal the
+     phase's own), qualityScores, removeDup, sam2fq and repair on the first
+     20,000 reads' BAM;
+ 15. the multi-device paths (subread_tpu_torch.parallel) on a mesh that
+     names cuda:0 four times (2 x 2 for the index mesh) and, where the
+     machine has more cards, on the first two: sharded_align_step on 8192
+     of phase 3's reads bit-equal to _device_align on every key, with the
+     times of both; index_sharded_vote on 4096 reads against an index
+     split into 2 position-range shards, bit-equal to the block fold on
+     one device on every field of VoteResult (phase 1's index, split and
+     stacked on the host, its seconds printed); DeviceCounter.count_sharded
+     on phase 3's sections equal to count; map_long_reads_sharded on 20 of
+     phase 11's long reads equal to map_long_reads; then torch.distributed
+     at world size 1 over NCCL: init, psum_stats, allgather_event_table, a
+     barrier, destroy.
 
-The thresholds of phases 8, 9, 11 and 13 come from a CPU run of the
-package on the same seeds at a small size (PERF.md).  Every path's kernel
-launches are counted from 0 just before it is driven and read just after;
-the counts are printed on one line.  It prints the card's `nvidia-smi
---query-gpu=name,power.limit` line and a JSON line describing the kernel,
-whose launches are those of the four main paths (phases 3, 5, 8 and 9;
-sublong's and cellCounts' are beside them under launches_by_path) and
-whose times and bound are phase 2's at the main shape: ms and
+The thresholds of phases 8, 9, 11, 13 and 14 come from a CPU run of the
+package on the same seeds or generator at a small size (PERF.md).  Every
+path's kernel launches are counted from 0 just before it is driven and
+read just after; the counts are printed on one line.  It prints the
+card's `nvidia-smi --query-gpu=name,power.limit` line and a JSON line
+describing the kernel, whose launches are those of the four main paths
+(phases 3, 5, 8 and 9; sublong's, cellCounts', phase 14's alignment and
+phase 15's multi-device paths are beside them under launches_by_path)
+and whose times and bound are phase 2's at the main shape: ms and
 plain_ms per call, device_ms and plain_device_ms on the card (library_ms
 is null: no single PyTorch call computes this function), then as its last
 line {"ok": true, "device": {...}}.  With no card it exits non-zero at
@@ -131,6 +157,7 @@ import io
 import json
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -148,6 +175,9 @@ SUBJUNC_PE_MIN = dict(mapped=0.9, proper=0.4, spliced_share=0.8, recall=0.9,
 # port's figures on the CPU on the same generators (PERF.md)
 SUBLONG_MIN = dict(mapped=0.95, near_truth=0.9, deletions=0.6)
 CELLCOUNTS_MIN = dict(cells_found=0.9, assigned=0.5)
+# lower bounds of phase 14 (exactSNP), set below the JAX package's figures
+# on the same generator at a small size (tests/test_torch_exactsnp.py)
+EXACTSNP_MIN = dict(hom_recall=0.85, het_recall=0.85, precision=0.9)
 
 
 def fail(msg: str) -> None:
@@ -403,6 +433,45 @@ def pe_vote_gap(host: Path, device: Path) -> int:
     return moved
 
 
+@contextlib.contextmanager
+def patched(obj, name, value):
+    """obj.name set to value for the block."""
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+def first_contig(genome):
+    """A Genome of `genome`'s first contig alone."""
+    from subread_tpu_torch.index.genome import build_genome
+    from subread_tpu_torch.io.fasta import Contig
+
+    lo = int(genome.starts[0])
+    hi = lo + int(genome.lengths[0])
+    return build_genome([Contig(name=genome.names[0], codes=genome.codes[lo:hi],
+                                ambig=genome.get_ambig(lo, hi))])
+
+
+def bam_head(src: Path, dst: Path, n: int, genome) -> int:
+    """The first n records of a BAM as a BAM; returns how many are mapped."""
+    from subread_tpu_torch.io import sam as samio
+    from subread_tpu_torch.io.bam import bam_to_sam_lines
+
+    w = samio.make_writer(str(dst), list(genome.names),
+                          [int(x) for x in genome.lengths], sam_output=False)
+    mapped = 0
+    for k, f in enumerate(bam_to_sam_lines(str(src))):
+        if k == n:
+            break
+        mapped += not int(f[1]) & 4
+        w.write_line("\t".join(f))
+    w.close()
+    return mapped
+
+
 def run_quiet(main, argv) -> str:
     """main(argv) with its stderr captured (and echoed); fails unless it
     returns 0.  Returns the stderr text."""
@@ -423,6 +492,7 @@ def main() -> int:
     ap.add_argument("--spliced-pairs", type=int, default=50_000)
     ap.add_argument("--long-reads", type=int, default=300)
     ap.add_argument("--cell-pairs", type=int, default=200_000)
+    ap.add_argument("--snp-region-mb", type=float, default=2.0)
     ap.add_argument("--seed", type=int, default=7)
     args = ap.parse_args()
     t_start = time.time()
@@ -445,22 +515,29 @@ def main() -> int:
     from subread_tpu_torch.io.fastq import ReadBatch, batch_from_records
     from subread_tpu_torch.io.gtf import load_annotation
     from subread_tpu_torch.ops import probe
+    from subread_tpu_torch.ops.vote import merge_vote_results, vote_batch
+    from subread_tpu_torch.parallel import distributed, index_shard
+    from subread_tpu_torch.parallel import mesh as pmesh
     from subread_tpu_torch.probe_bench import smoke_shapes
-    from subread_tpu_torch.quant import cellcounts
+    from subread_tpu_torch.quant import cellcounts, snp
     from subread_tpu_torch.quant.device_count import STATUS_NAMES, DeviceCounter
     from subread_tpu_torch.quant.featurecounts import FCOptions, FeatureCounter
     from subread_tpu_torch.synth import (
-        synthetic_cell_reads, synthetic_genes, synthetic_genome,
-        synthetic_long_indel_reads, synthetic_long_reads, synthetic_pairs,
-        synthetic_reads, synthetic_spliced_pairs, synthetic_spliced_reads,
-        write_fastq, write_genes_gtf,
+        snp_call_metrics, synthetic_cell_reads, synthetic_genes,
+        synthetic_genome, synthetic_long_indel_reads, synthetic_long_reads,
+        synthetic_pairs, synthetic_reads, synthetic_snp_sample,
+        synthetic_spliced_pairs, synthetic_spliced_reads, write_fastq,
+        write_genes_gtf, write_genome_fasta,
     )
     from subread_tpu_torch.timing import first_block_vote, host_seconds, stage_ms
     from subread_tpu_torch.tools import align as align_cli
     from subread_tpu_torch.tools import cellcounts as cc_cli
+    from subread_tpu_torch.tools import exactsnp as exactsnp_cli
     from subread_tpu_torch.tools import featurecounts as fc_cli
     from subread_tpu_torch.tools import subjunc as subjunc_cli
+    from subread_tpu_torch.tools import subindel as subindel_cli
     from subread_tpu_torch.tools import sublong as sublong_cli
+    from subread_tpu_torch.tools import utilities
 
     # ---- phase 0: toolchain facts ------------------------------------
     card = sh("nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader")
@@ -921,8 +998,8 @@ def main() -> int:
     max_err = max(max_err, err11)
     del al11
     torch.cuda.empty_cache()
-    n11 = min(100, len(lr))
-    fq11h = work / "long100.fq"
+    n11 = min(25, len(lr))
+    fq11h = work / "long25.fq"
     head_fastq(fq11, fq11h, n11)
     for rna in ([], ["-X"]):
         cfg11 = sublong_cli.sublong_config(sublong_cli.build_parser().parse_args(
@@ -1096,8 +1173,8 @@ def main() -> int:
     max_err = max(max_err, err13)
     del al13
     torch.cuda.empty_cache()
-    n13 = min(8192, len(c1))
-    f1h, f2h = work / "cell_r1_8k.fq", work / "cell_r2_8k.fq"
+    n13 = min(4096, len(c1))
+    f1h, f2h = work / "cell_r1_4k.fq", work / "cell_r2_4k.fq"
     head_fastq(f131, f1h, n13)
     head_fastq(f132, f2h, n13)
     for d in ("cpu", "cuda"):
@@ -1112,6 +1189,207 @@ def main() -> int:
     print(f"phase 13: cpu and cuda agree on matrix.mtx, barcodes.tsv and "
           f"features.tsv ({len((work / 'p13_cpu' / 'barcodes.tsv').read_text().split())} "
           f"cells)")
+    # ---- phase 14: exactSNP on an aligned diploid sample ----------------
+    t = time.time()
+    snp_reads, snps = synthetic_snp_sample(
+        genome, seed=args.seed + 9, region_len=int(args.snp_region_mb * 1_000_000))
+    fq14, fa14 = work / "snp.fq", work / "genome.fa"
+    write_fastq(str(fq14), snp_reads)
+    write_genome_fasta(str(fa14), genome)
+    print(f"phase 14: set-up: {len(snp_reads)} reads over {len(snps)} planted SNPs "
+          f"({sum(s[4] for s in snps)} heterozygous) in {args.snp_region_mb:g} Mb of "
+          f"{genome.names[0]}, the genome as FASTA ({time.time() - t:.1f}s)")
+    bam14 = work / "snp.bam"
+    argv = ["-t", "1", "-i", prefix, "-r", str(fq14), "-o", str(bam14),
+            "--device", "cuda"]
+    probe.probe_hits.launches = 0
+    run14 = align_cli.run_align(align_cli.build_parser().parse_args(argv))
+    torch.cuda.synchronize()
+    launches["exactSNP align (phase 14)"] = probe.probe_hits.launches
+    check(run14["total"] == len(snp_reads),
+          f"phase 14: {run14['total']} reads aligned of {len(snp_reads)}")
+    check(launches["exactSNP align (phase 14)"] > 0,
+          "phase 14: the alignment never launched the probe_hits kernel")
+    vcf14 = work / "snp.vcf"
+    t = time.time()
+    run_quiet(exactsnp_cli.main, ["-g", str(fa14), "-i", str(bam14), "-o", str(vcf14)])
+    t_snp = time.time() - t
+    m14 = snp_call_metrics(str(vcf14), snps)
+    for k, lo in EXACTSNP_MIN.items():
+        check(m14[k] >= lo, f"phase 14: {k} {m14[k]:.4f} < {lo}")
+    print(f"phase 14: {len(snp_reads)} reads, mapped {run14['mapped'] / run14['total']:.4f}, "
+          f"{launches['exactSNP align (phase 14)']} kernel launches, "
+          f"{len(snp_reads) / run14['time_align']:.1f} reads/s over align_file with BAM "
+          f"out ({run14['time_align']:.2f}s, read+emit {run14['time_io']:.2f}s); "
+          f"exactSNP over the whole BAM {t_snp:.2f}s (native pileup "
+          f"{native.get_lib() is not None}): {m14['called']} SNVs called, recall "
+          f"homozygous {m14['hom_recall']:.4f}, heterozygous {m14['het_recall']:.4f}, "
+          f"precision {m14['precision']:.4f}")
+    # the native pileup against the Python record path on the first 20,000
+    # reads, over the SNP region's contig
+    n14 = min(20_000, len(snp_reads))
+    bam14h, fa14c = work / "snp20k.bam", work / "chr1.fa"
+    write_genome_fasta(str(fa14c), first_contig(genome))
+    n_mapped_head = bam_head(bam14, bam14h, n14, genome)
+    vcfs = {}
+    for path in ("native", "python"):
+        vcfs[path] = work / f"snp20k_{path}.vcf"
+        t = time.time()
+        with contextlib.ExitStack() as stack:
+            if path == "python":
+                stack.enter_context(patched(snp.SNPCaller, "_add_bam_native",
+                                            lambda self, p: False))
+            run_quiet(exactsnp_cli.main, ["-g", str(fa14c), "-i", str(bam14h),
+                                          "-o", str(vcfs[path])])
+        print(f"phase 14: exactSNP on the first {n14} reads, {path} pileup, "
+              f"{time.time() - t:.2f}s")
+    body = lambda f: [x for x in open(f) if not x.startswith("##exactSNP_Commandline")]
+    check(native.get_lib() is not None, "phase 14: the native pileup did not build")
+    check(body(vcfs["native"]) == body(vcfs["python"]),
+          "phase 14: the native pileup's VCF differs from the Python path's")
+    print(f"phase 14: native and Python pileups give the same VCF "
+          f"({len([x for x in body(vcfs['native']) if not x.startswith('#')])} records)")
+    t = time.time()
+    err = run_quiet(subindel_cli.main, ["-i", str(bam14), "-g", str(fa14),
+                                        "-o", str(work / "subindel.vcf")])
+    print(f"phase 14: subindel over the whole BAM ({time.time() - t:.2f}s): "
+          f"{err.strip()}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        run_quiet(utilities.main, ["propmapped", "-i", str(bam14h)])
+        run_quiet(utilities.main, ["qualityScores", "-i", str(fq14), "-n", "3"])
+    lines = out.getvalue().splitlines()
+    _, n_rec, n_map, share = lines[1].split("\t")
+    check(int(n_rec) == n14 and int(n_map) == n_mapped_head,
+          f"phase 14: propmapped counts {n_map} of {n_rec}, the phase "
+          f"{n_mapped_head} of {n14}")
+    print(f"phase 14: propmapped on the first {n14} reads' BAM: {lines[1]}; "
+          f"qualityScores, first 3 reads: "
+          f"{' | '.join(x[:40] for x in lines[2:])}")
+    for tool, extra in (("removeDup", ["-o", str(work / "rd.sam")]),
+                        ("sam2fq", ["-o", str(work / "back.fq")]),
+                        ("repair", ["-o", str(work / "rep.sam")])):
+        t = time.time()
+        err = run_quiet(utilities.main, [tool, "-i", str(bam14h), *extra])
+        out_lines = sum(1 for _ in open(extra[1]))
+        print(f"phase 14: {tool} on the first {n14} reads' BAM "
+              f"({time.time() - t:.2f}s): {err.strip() or '-'}; "
+              f"{out_lines} lines written")
+
+    # ---- phase 15: the multi-device paths --------------------------------
+    devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    meshes = [("cuda:0 x 4", [dev] * 4, (2, 2))]
+    if len(devs) > 1:
+        meshes.append(("cuda:0, cuda:1", devs[:2], (1, 2)))
+    al_cuda = Aligner(genome_l, index_l, cfg, device=dev)
+    R15 = min(8192, len(reads))
+    c15, a15, l15, _ = al_cuda._pad_batch(ReadBatch(
+        list(reads.names[:R15]), reads.codes[:R15], reads.lengths[:R15],
+        reads.quals[:R15], reads.ambig[:R15]))
+    single15 = al_cuda._device_align(*al_cuda._upload_reads(c15, a15, l15))
+    one_ev, one_wall = stage_ms(
+        lambda: al_cuda._device_align(*al_cuda._upload_reads(c15, a15, l15)), 5)
+    t = time.time()
+    shards = index_shard.split_index_shards(index, 2)
+    t_split = time.time() - t
+    t = time.time()
+    bs15, cb15, sb15, sl15, bits15, sbits15 = index_shard.stack_shards(shards)
+    t_stack = time.time() - t
+    r15 = synthetic_reads(genome, 4096, seed=args.seed + 11)
+    vp15 = al_cuda.vote_params
+    up15 = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    fold = None
+    for s_ in range(2):
+        v = vote_batch(up15(r15.codes), up15(r15.ambig), up15(r15.lengths.astype(np.int32)),
+                       up15(bs15[s_].astype(np.int32)), up15(cb15[s_].view(np.int32)),
+                       bits15, vp15, sub_base=up15(sb15[s_].astype(np.int32)),
+                       sub_lo=up15(sl15[s_].astype(np.int32)), sub_bits=sbits15)
+        fold = v if fold is None else merge_vote_results(fold, v, vp15)
+    print(f"phase 15: set-up: phase 1's index of {index.n_items} entries split into 2 "
+          f"position-range shards of {[sh.n_items for sh in shards]} entries, "
+          f"bucket_bits {bits15}, sub_bits {sbits15} ({t_split:.1f}s), stacked "
+          f"({t_stack:.1f}s)")
+    dc15 = DeviceCounter(ann, device=dev)
+    secs15 = dc15.sections_from_file(str(sam))
+    c_one, s_one, _, ov_one = dc15.count(*secs15)
+    n_lr15 = min(20, len(lr))
+    lr15 = [lr.codes[i, :lr.lengths[i]] for i in range(n_lr15)]
+    al15 = Aligner(genome_l, index_l, sublong_cli.sublong_config(
+        sublong_cli.build_parser().parse_args(["-i", prefix, "-r", "-", "-o", "-"])),
+        device=dev)
+    t = time.time()
+    hits_one = longread.map_long_reads(al15, lr15)
+    t_long_one = time.time() - t
+    probe.probe_hits.launches = 0
+    for label, mdevs, (nr, ni) in meshes:
+        mesh = pmesh.make_mesh(devices=mdevs)
+        step = pmesh.sharded_align_step(mesh, al_cuda)
+        got = step(c15, a15, l15)
+        torch.cuda.synchronize()
+        bad = [k for k in single15 if not torch.equal(got[k].to(dev), single15[k])]
+        check(sorted(got) == sorted(single15) and not bad,
+              f"phase 15 [{label}]: sharded_align_step differs from _device_align on {bad}")
+        sh_ev, sh_wall = stage_ms(lambda: step(c15, a15, l15), 5)
+        print(f"phase 15 [{label}]: sharded_align_step on {R15} of phase 3's reads "
+              f"bit-equal to _device_align on all {len(single15)} keys "
+              f"({int(single15['saturated'].sum())} still saturated after the tiers); "
+              f"medians of 5 calls (CUDA events / host clock): sharded "
+              f"{sh_ev:.4f} / {sh_wall:.4f} ms, one device {one_ev:.4f} / "
+              f"{one_wall:.4f} ms")
+        m2 = index_shard.make_mesh_2d(nr, ni, mdevs)
+        placed = index_shard.place_sharded_index(m2, bs15, cb15, sb15, sl15)
+        vstep = index_shard.index_sharded_vote(m2, bits15, vp15, sub_bits=sbits15)
+        vgot = vstep(r15.codes, r15.ambig, r15.lengths.astype(np.int32), *placed)
+        bad = [f for f in fold._fields if not torch.equal(getattr(vgot, f).to(dev),
+                                                         getattr(fold, f))]
+        check(not bad, f"phase 15 [{label}]: index_sharded_vote differs from the "
+                       f"block fold on {bad}")
+        print(f"phase 15 [{label}]: index_sharded_vote on a {nr} x {ni} mesh, 4096 "
+              f"reads, bit-equal to the block fold on one device on every field; "
+              f"{int((vgot.votes[:, 0] > 0).sum())} reads with a candidate")
+        c_sh, s_sh, ov_sh = dc15.count_sharded(mesh, *secs15)
+        check(np.array_equal(c_sh, c_one) and np.array_equal(s_sh, s_one)
+              and ov_sh == ov_one,
+              f"phase 15 [{label}]: count_sharded differs from count")
+        t = time.time()
+        hits_sh = longread.map_long_reads_sharded(al15, lr15, mesh)
+        t_long_sh = time.time() - t
+        check([h.__dict__ for h in hits_sh] == [h.__dict__ for h in hits_one],
+              f"phase 15 [{label}]: map_long_reads_sharded differs from map_long_reads")
+        print(f"phase 15 [{label}]: count_sharded on phase 3's {len(secs15[2])} "
+              f"records equal to count ({int(s_one[0])} assigned); "
+              f"map_long_reads_sharded on {n_lr15} long reads equal to "
+              f"map_long_reads ({sum(h.mapped for h in hits_one)} mapped; "
+              f"{t_long_sh:.2f}s against {t_long_one:.2f}s)")
+    torch.cuda.synchronize()
+    launches["multi-device (phase 15)"] = probe.probe_hits.launches
+    check(launches["multi-device (phase 15)"] > 0,
+          "phase 15: the multi-device paths never launched the probe_hits kernel")
+    del al_cuda, al15, single15, fold, vgot, placed, shards, cb15
+    torch.cuda.empty_cache()
+    # torch.distributed at world size 1 over NCCL
+    with socket.socket() as so:
+        so.bind(("127.0.0.1", 0))
+        port = so.getsockname()[1]
+    t = time.time()
+    check(distributed.init_distributed(f"127.0.0.1:{port}", num_processes=1,
+                                       process_id=0, device=dev),
+          "phase 15: init_distributed did not start a process group")
+    backend = torch.distributed.get_backend()
+    check(backend == "nccl", f"phase 15: backend {backend}, not nccl")
+    stats = {"mapped": int(run14["mapped"]), "total": int(run14["total"])}
+    check(distributed.psum_stats(stats) == stats, "phase 15: psum_stats changed the counts")
+    ev = distributed.allgather_event_table(
+        np.array([10, 10, 20], np.int64), np.array([50, 50, 70], np.int64),
+        np.array([2, 3, 1], np.int64))
+    check([a.tolist() for a in ev] == [[10, 20], [50, 70], [5, 1]],
+          f"phase 15: allgather_event_table gave {ev}")
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    print(f"phase 15: torch.distributed over {backend} at world size 1: init, "
+          f"psum_stats, allgather_event_table, barrier, destroy "
+          f"({time.time() - t:.2f}s); {launches['multi-device (phase 15)']} kernel "
+          f"launches on the multi-device paths")
     print(f"probe_hits launches per path: {json.dumps(launches)}")
     shutil.rmtree(work, ignore_errors=True)
 
@@ -1121,14 +1399,16 @@ def main() -> int:
                   "paired-end": launches["paired-end (phase 5)"],
                   "subjunc": launches["subjunc (phase 8)"],
                   "subjunc-pe": launches["subjunc-pe (phase 9)"]}
-    print(f"chip_smoke: phases 0-13 passed in {time.time() - t_start:.1f}s")
+    print(f"chip_smoke: phases 0-15 passed in {time.time() - t_start:.1f}s")
     print(card)
     print(json.dumps({"kernels": [{
         "name": "probe_hits", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": sum(main_paths.values()),
         "launches_by_path": {**main_paths,
                              "sublong": launches["sublong (phase 11)"],
-                             "cellcounts": launches["cellCounts (phase 13)"]},
+                             "cellcounts": launches["cellCounts (phase 13)"],
+                             "exactsnp-align": launches["exactSNP align (phase 14)"],
+                             "multi-device": launches["multi-device (phase 15)"]},
         "max_abs_err": max_err, "ms": ms_k, "plain_ms": ms_r,
         "device_ms": dev_k, "plain_device_ms": dev_r,
         "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,

@@ -1,7 +1,7 @@
 """Copy of `subread_tpu/align/longread.py`: the port imports nothing of the JAX package.
 
-Left out: `map_long_reads_sharded`, the mesh path, which imports `jax` and
-`parallel.mesh`; it comes with the port's multi-GPU work.
+`map_long_reads_sharded`, the mesh path, runs over the port's
+`parallel.mesh.sharded_align_step` on torch devices instead of a JAX mesh.
 
 sublong: long-read mapping by windowed voting + chain consensus.
 
@@ -394,6 +394,65 @@ def map_long_reads(
                    codes=codes, gcodes=aligner.genome.codes)
         )
     return out
+
+
+def map_long_reads_sharded(
+    aligner, reads: list[np.ndarray], mesh, min_windows: int = 2
+) -> list[LongReadHit]:
+    """Sequence-parallel long-read mapping over a device mesh.
+
+    The mesh answer to the reference's 1.2Mbp single-thread chaining loop
+    (longread-mapping.c:529-660) and SURVEY §5's long-context scaling item:
+    a long read's fixed 100bp windows ARE batch rows here, so sharding the
+    reads axis of the window batch across the mesh splits ONE extreme read
+    across all devices (window voting is embarrassingly parallel; only the
+    host-side diagonal chaining sees the whole read).  No ring pass is
+    needed because chaining consumes only (pos, strand, votes) per window —
+    a few bytes, fetched once — not the window activations.
+    """
+    from .pipeline import _host
+    from ..parallel.mesh import sharded_align_step
+
+    names, seqs, owner, winid = [], [], [], []
+    for r, codes in enumerate(reads):
+        n_win = max(len(codes) // WINDOW, 1)
+        for w in range(n_win):
+            chunk = codes[w * WINDOW : (w + 1) * WINDOW]
+            seqs.append(dna.decode(chunk).encode())
+            names.append(f"r{r}w{w}")
+            owner.append(r)
+            winid.append(w)
+    batch = batch_from_records(
+        names, seqs, [b"I" * len(s) for s in seqs],
+        pad_to=aligner.cfg.pad_read_len,
+    )
+    n = len(batch)
+    S = mesh.devices.size
+    n_pad = -(-n // S) * S
+    codes_p = np.zeros((n_pad, batch.max_len), np.uint8)
+    ambig_p = np.zeros((n_pad, batch.max_len), bool)
+    lens_p = np.zeros(n_pad, np.int32)
+    codes_p[:n] = batch.codes
+    ambig_p[:n] = batch.ambig
+    lens_p[:n] = batch.lengths
+    step = sharded_align_step(mesh, aligner)
+    res_dev = step(codes_p, ambig_p, lens_p)
+    # every key on the host in the JAX package's dtypes; rescue below
+    # writes records in place
+    res = {k: _host(k, v)[:n].copy() for k, v in res_dev.items()}
+    # same wide-gather re-vote the single-chip align_batch applies to
+    # saturated repeat windows — keeps mesh results bit-identical to it
+    aligner._rescue_saturated(batch, res)
+    owner = np.asarray(owner)
+    winid = np.asarray(winid)
+    return [
+        chain_read(
+            res, np.flatnonzero(owner == r), winid[np.flatnonzero(owner == r)],
+            len(codes), min_windows,
+            codes=codes, gcodes=aligner.genome.codes,
+        )
+        for r, codes in enumerate(reads)
+    ]
 
 
 def sublong_file(aligner, fastq_path: str, out_sam: str, min_windows: int = 2,

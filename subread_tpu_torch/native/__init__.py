@@ -8,11 +8,13 @@ fallback so the package works without a toolchain.
 Only the sources and wrappers the port calls are copied: SAM formatting
 (`samtext.cpp`), read packing (`pack.cpp`), the banded indel DP
 (`dpalign.cpp`, called through `get_lib` by `align.indelevent`), BGZF
-inflation (`bgzf.cpp`) and featureCounts' counting passes and record
+inflation (`bgzf.cpp`), featureCounts' counting passes and record
 parser (`fccount.cpp`, called by `quant.featurecounts` and
-`quant.device_count`).  The library is built into `build/native/` at the
-root of the checkout (listed in .gitignore), named by a hash of its
-sources and flags, never into the package directory.
+`quant.device_count`) and exactSNP's BAM pileup (`snppile.cpp`, called by
+`quant.snp`; its entry point also declares its `argtypes` here).  The
+library is built into `build/native/` at the root of the checkout
+(listed in .gitignore), named by a hash of its sources and flags, never
+into the package directory.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ import numpy as np
 
 _HERE = pathlib.Path(__file__).parent
 BUILD_DIR = _HERE.parent.parent / "build" / "native"
-SOURCES = ("samtext.cpp", "pack.cpp", "dpalign.cpp", "bgzf.cpp", "fccount.cpp")
+SOURCES = ("samtext.cpp", "pack.cpp", "dpalign.cpp", "bgzf.cpp", "fccount.cpp",
+           "snppile.cpp")
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-pthread")
 _LIB = None
 _TRIED = False
@@ -80,6 +83,12 @@ def get_lib():
     lib.fc_bam_split_offsets.restype = ctypes.c_long
     lib.fc_read_sections_sam.restype = ctypes.c_long
     lib.fc_read_sections_bam.restype = ctypes.c_long
+    lib.snp_pileup_bam.restype = ctypes.c_long
+    P, L, I32 = ctypes.c_void_p, ctypes.c_long, ctypes.c_int32
+    lib.snp_pileup_bam.argtypes = [
+        P, L, P, I32, P, P, I32, I32, I32, I32, P,
+        P, P, P, P, P, L, P, L, ctypes.POINTER(L), ctypes.POINTER(L),
+    ]
     _LIB = lib
     return _LIB
 
@@ -519,3 +528,68 @@ def fc_read_sections_bam(bam_records: bytes, ref2chrom: np.ndarray,
             return None
         return (chrom_idx[:n], nsec[:n], sec_s[:n], sec_e[:n],
                 flag[:n], nh[:n], qh[:n])
+
+
+def snp_pileup_bam(
+    bam_records: bytes, start: int,
+    ref2chrom: np.ndarray,        # int32 [n_refs] -> chrom id or -1
+    chrom_off: np.ndarray,        # int64 [n_chroms] position offsets in votes
+    chrom_len: np.ndarray,        # int64 [n_chroms]
+    votes: np.ndarray,            # int32 [total_positions, 4], accumulated into
+    trim: int, min_q: int, qual_bias: int,
+):
+    """Native exactSNP pileup (snppile.cpp).  Returns
+    (n_records, indels list of (chrom, pos0, length, seq, count)) or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)
+    base = ctypes.cast(ctypes.c_char_p(bam_records), ctypes.c_void_p).value
+    r2c = np.ascontiguousarray(ref2chrom, np.int32)
+    coff = np.ascontiguousarray(chrom_off, np.int64)
+    clen = np.ascontiguousarray(chrom_len, np.int64)
+    assert votes.dtype == np.int32 and votes.flags.c_contiguous
+    # accumulate into a scratch buffer: the C call votes BEFORE serializing
+    # indels, so a capacity retry must not double-count into the caller's
+    tmp = np.zeros_like(votes)
+    cap = 1 << 16
+    blob_cap = 1 << 20
+    while True:
+        o_chrom = np.empty(cap, np.int32)
+        o_pos = np.empty(cap, np.int64)
+        o_len = np.empty(cap, np.int32)
+        o_cnt = np.empty(cap, np.int64)
+        o_soff = np.empty(cap, np.int64)
+        o_blob = np.empty(blob_cap, np.uint8)
+        n_ind = ctypes.c_long(0)
+        blob_len = ctypes.c_long(0)
+        rv = lib.snp_pileup_bam(
+            ctypes.c_void_p(base + start),
+            ctypes.c_long(len(bam_records) - start),
+            ptr(r2c), ctypes.c_int32(len(r2c)),
+            ptr(coff), ptr(clen), ctypes.c_int32(len(coff)),
+            ctypes.c_int32(trim), ctypes.c_int32(min_q),
+            ctypes.c_int32(qual_bias),
+            ptr(tmp),
+            ptr(o_chrom), ptr(o_pos), ptr(o_len), ptr(o_cnt), ptr(o_soff),
+            ctypes.c_long(cap), ptr(o_blob), ctypes.c_long(blob_cap),
+            ctypes.byref(n_ind), ctypes.byref(blob_len),
+        )
+        if rv == -2:
+            cap *= 4
+            blob_cap *= 4
+            tmp[:] = 0
+            continue
+        if rv < 0:
+            return None
+        votes += tmp
+        ind = []
+        blob = o_blob.tobytes()
+        for i in range(n_ind.value):
+            so = int(o_soff[i])
+            sl = -int(o_len[i]) if o_len[i] < 0 else 0
+            ind.append((
+                int(o_chrom[i]), int(o_pos[i]), int(o_len[i]),
+                blob[so : so + sl].decode(), int(o_cnt[i]),
+            ))
+        return int(rv), ind

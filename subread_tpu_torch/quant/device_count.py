@@ -16,8 +16,10 @@ for JAX's `31 - clz`.  Every table and section array is int32, as in the
 JAX package, so the outputs match it in values and dtypes: counts
 [n_genes], summary [5] and status [R], all int32, and overflow 0.
 
-Left out: `count_sharded`, the mesh path, which comes with the port's
-multi-GPU work.
+`count_sharded` splits the records over the devices of a mesh axis,
+runs `_kernel` on each part with the tables uploaded once per distinct
+device, and sums counts, summary and overflow on the mesh's first device:
+the JAX package's `psum`.
 
 Reference model: featureCounts walks each thread's reads through a
 per-chromosome sorted feature table (binary search + scan-back,
@@ -34,6 +36,7 @@ import numpy as np
 import torch
 
 from ..device import floor_log2, resolve_device, upload
+from ..parallel.mesh import axis_devices, mesh_devices
 
 NONE = -1  # label: no feature covers this span
 
@@ -155,6 +158,8 @@ class DeviceCounter:
                   for a in (t[0], t[1], *r[:3]))
             for t, r in zip(self._tables, self._rmq)
         ]
+        # keyed by the device with a card's index explicit, as a mesh names it
+        self._tables_by_device = {mesh_devices([self.device])[0]: self._dev_tables}
 
     def _build_table(self, keep: np.ndarray):
         ann = self.ann
@@ -401,9 +406,18 @@ class DeviceCounter:
     # ------------------------------------------------------------------
     # device kernel
 
-    def _kernel(self, sec_start, sec_end, gate, strand_tbl):
+    def _tables_on(self, device):
+        """The span and RMQ tables on `device`, uploaded once per device."""
+        device = mesh_devices([device])[0]
+        if device not in self._tables_by_device:
+            self._tables_by_device[device] = [
+                tuple(t.to(device) for t in tbl) for tbl in self._dev_tables]
+        return self._tables_by_device[device]
+
+    def _kernel(self, sec_start, sec_end, gate, strand_tbl, tables=None):
         """Global-coord sections -> (counts, summary, status, overflow), as
-        int32 tensors on the counter's device (overflow a Python 0).
+        int32 tensors on the counter's device, or on the device of
+        `tables` (`_tables_on`) when given (overflow a Python 0).
 
         Per-section gene evidence (range min / max / contains-multi over
         the covering spans [lo, hi)) comes from sparse-table RMQ lookups:
@@ -412,7 +426,8 @@ class DeviceCounter:
         i32 = torch.int32
 
         def one_table(tbl_idx):
-            span_s, span_e, d_min, d_max, d_mul = self._dev_tables[tbl_idx]
+            span_s, span_e, d_min, d_max, d_mul = (
+                tables or self._dev_tables)[tbl_idx]
             G = self._rmq[tbl_idx][4]
             lo = torch.searchsorted(span_e, sec_start, out_int32=True)
             hi = torch.searchsorted(span_s, sec_end, right=True,
@@ -434,7 +449,7 @@ class DeviceCounter:
             mul = torch.where(ok, mul, 0)
             return vmin, vmax, mul
 
-        if len(self._dev_tables) == 1:
+        if len(tables or self._dev_tables) == 1:
             vmin_s, vmax_s, mul_s = one_table(0)
         else:
             a0 = one_table(0)
@@ -690,6 +705,41 @@ class DeviceCounter:
             up(sec_start), up(sec_end), up(gate), up(strand_tbl)
         )
         return (c.cpu().numpy(), s.cpu().numpy(), st.cpu().numpy(), int(ov))
+
+    def count_sharded(self, mesh, sec_start, sec_end, gate,
+                      strand_tbl=None, axis: str = "reads"):
+        """Multi-device counting: records split over the devices of mesh
+        axis `axis` (padded as the JAX package pads: ST_PAD gates and -1
+        section ends), `_kernel` on each part, every part launched before
+        any is summed, and the per-part counts, summary and overflow
+        summed on the mesh's first device (fc_thread_merge_results's
+        equivalent).  Returns the same tuple as :meth:`count` minus the
+        per-read status."""
+        devs = axis_devices(mesh, axis)
+        n = len(devs)
+        R = sec_start.shape[0]
+        pad = (-R) % n
+        if strand_tbl is None:
+            strand_tbl = np.zeros(R, dtype=np.int32)
+        if pad:
+            sec_start = np.pad(sec_start, ((0, pad), (0, 0)))
+            sec_end = np.pad(
+                sec_end, ((0, pad), (0, 0)), constant_values=-1
+            )
+            gate = np.pad(gate, (0, pad), constant_values=ST_PAD)
+            strand_tbl = np.pad(strand_tbl, (0, pad))
+        per = (R + pad) // n
+        parts = []
+        for i, d in enumerate(devs):
+            sl = slice(i * per, (i + 1) * per)
+            up = lambda a: upload(np.ascontiguousarray(a[sl], dtype=np.int32), d)
+            parts.append(self._kernel(up(sec_start), up(sec_end), up(gate),
+                                      up(strand_tbl), tables=self._tables_on(d)))
+        home = devs[0]
+        c = sum(p[0].to(home) for p in parts)
+        s = sum(p[1].to(home) for p in parts)
+        ov = sum(int(p[3]) for p in parts)
+        return c.cpu().numpy(), s.cpu().numpy(), ov
 
 
 class _AnnView:

@@ -16,7 +16,9 @@ junctions and fusions.  `synthetic_long_reads` makes sublong's 2-20 kb
 reads, some across a planted deletion; `synthetic_genes` and
 `write_genes_gtf` an annotation of multi-exon, multi-transcript genes at
 GENCODE's density; `synthetic_cell_reads` 10x-like barcode/UMI and cDNA
-read pairs from those genes.
+read pairs from those genes; `synthetic_snp_sample` a diploid sample's
+reads over a region with planted homozygous and heterozygous SNPs, for
+exactSNP.
 """
 
 from __future__ import annotations
@@ -475,6 +477,26 @@ def write_fastq(path: str, batch: ReadBatch, suffix: str = "") -> None:
             f.write(f"@{name}{suffix}\n{seq.tobytes().decode()}\n+\n{q}\n")
 
 
+def write_genome_fasta(path: str, genome: Genome, width: int = 60) -> None:
+    """FASTA of a genome's contigs, N where the ambiguity bit is set, in
+    lines of `width` bases."""
+    amb = genome.get_ambig(0, int(genome.total))
+    with open(path, "wb") as f:
+        for c, name in enumerate(genome.names):
+            lo = int(genome.starts[c])
+            hi = lo + int(genome.lengths[c])
+            seq = dna.CODE2BASE[genome.codes[lo:hi] & 3].copy()
+            seq[amb[lo:hi]] = ord("N")
+            f.write(f">{name}\n".encode())
+            n = len(seq) // width * width
+            lines = np.concatenate(
+                [seq[:n].reshape(-1, width),
+                 np.full((n // width, 1), ord("\n"), np.uint8)], axis=1)
+            f.write(lines.tobytes())
+            if n < len(seq):
+                f.write(seq[n:].tobytes() + b"\n")
+
+
 def _long_read_errors(seq: np.ndarray, rng, error_rate: float) -> np.ndarray:
     """`seq` with `error_rate` of its bases hit: 60% substitutions, 20%
     one-base deletions, 20% one-base insertions after the base."""
@@ -671,3 +693,99 @@ def synthetic_cell_reads(
     q2 = [b"I" * read_len] * n_pairs
     return (whitelist, batch_from_records(names, r1s, q1),
             batch_from_records(names, r2s, q2), np.sort(cells))
+
+
+def synthetic_snp_sample(
+    genome: Genome,
+    seed: int = 1,
+    region_len: int = 2_000_000,
+    region_start: int = 10_000,
+    snps_per_kb: float = 1.0,
+    het_frac: float = 0.5,
+    coverage: float = 30.0,
+    read_len: int = 100,
+    error_rate: float = 0.01,
+    min_gap: int = 20,
+) -> tuple[ReadBatch, list[tuple[str, int, str, str, bool]]]:
+    """A diploid sample for exactSNP: `snps_per_kb` SNPs per kb (at least
+    `min_gap` bases apart, never at an N) planted in the first contig's
+    [region_start, region_start + region_len) (cut to the contig), `het_frac`
+    of them heterozygous, the rest homozygous; `coverage`-fold
+    `read_len`-base reads from uniform starts in the region, each from one
+    of the two haplotypes (the heterozygous alleles are on the second),
+    half reverse-complemented, with `error_rate` substitutions.  Names
+    record the truth, `snp<i>_<contig>_<pos1>_<strand>_<haplotype>`; bases
+    over a genome N are N; qualities are all 'I'.  Returns the reads and
+    the planted SNPs as (contig, 1-based position, ref, alt, heterozygous),
+    sorted by position."""
+    rng = np.random.default_rng(seed)
+    c0 = int(genome.starts[0])
+    lo = min(region_start, max(int(genome.lengths[0]) - read_len - 1, 0))
+    hi = min(lo + region_len, int(genome.lengths[0]))
+    region = genome.codes[c0 + lo: c0 + hi]
+    amb = genome.get_ambig(c0 + lo, c0 + hi)
+    n_snps = int((hi - lo) * snps_per_kb / 1000)
+    cand = np.flatnonzero(~amb)
+    picked = np.sort(rng.choice(cand, size=min(2 * n_snps, len(cand)), replace=False))
+    keep, last = [], -min_gap
+    for p in picked:
+        if p - last >= min_gap:
+            keep.append(int(p))
+            last = p
+    at = np.sort(rng.permutation(np.asarray(keep, np.int64))[:n_snps])
+    ref = region[at]
+    alt = ((ref.astype(np.int64) + rng.integers(1, 4, len(at))) % 4).astype(np.uint8)
+    het = rng.random(len(at)) < het_frac
+    hap0 = region.copy()
+    hap0[at[~het]] = alt[~het]
+    hap1 = region.copy()
+    hap1[at] = alt
+    n_reads = int(coverage * (hi - lo) / read_len)
+    starts = rng.integers(0, hi - lo - read_len + 1, n_reads)
+    hap = rng.integers(0, 2, n_reads)
+    cols = starts[:, None] + np.arange(read_len)
+    codes = np.where(hap[:, None] == 1, hap1[cols], hap0[cols])
+    ambig = amb[cols]
+    err = rng.random(codes.shape) < error_rate
+    codes[err] = (codes[err] + rng.integers(1, 4, int(err.sum()))) % 4
+    strand = rng.integers(0, 2, n_reads)
+    rev = strand == 1
+    codes[rev] = 3 - codes[rev, ::-1]
+    ambig[rev] = ambig[rev, ::-1]
+    codes[ambig] = 0
+    name = genome.names[0]
+    names = [f"snp{i}_{name}_{lo + int(s) + 1}_{int(t)}_{int(h)}"
+             for i, (s, t, h) in enumerate(zip(starts, strand, hap))]
+    batch = ReadBatch(
+        names=names, codes=codes.astype(np.uint8),
+        lengths=np.full(n_reads, read_len, np.int32),
+        quals=np.full((n_reads, read_len), ord("I"), np.uint8), ambig=ambig,
+    )
+    bases = dna.CODE2BASE
+    snps = [(name, lo + int(p) + 1, chr(bases[r]), chr(bases[a]), bool(h))
+            for p, r, a, h in zip(at, ref, alt, het)]
+    return batch, snps
+
+
+def snp_call_metrics(vcf_path: str, snps) -> dict:
+    """Recall of `synthetic_snp_sample`'s homozygous and heterozygous SNPs
+    among a VCF's SNV records (the planted position with the planted
+    alternative base among ALT) and the precision of those records."""
+    called = {}
+    with open(vcf_path) as f:
+        for line in f:
+            if line.startswith("#"):
+                continue
+            c, pos, _, ref, alt = line.split("\t", 5)[:5]
+            if len(ref) == 1 and all(len(a) == 1 for a in alt.split(",")):
+                called[(c, int(pos))] = set(alt.split(","))
+    hit = [(c, p) in called and a in called[(c, p)] for c, p, _, a, _ in snps]
+    het = np.asarray([h for *_, h in snps], bool)
+    hit = np.asarray(hit, bool)
+    return dict(
+        called=len(called),
+        hom_recall=float(hit[~het].mean()) if (~het).any() else 0.0,
+        het_recall=float(hit[het].mean()) if het.any() else 0.0,
+        precision=float(hit.sum() / len(called)) if called else 0.0,
+    )
+

@@ -13,8 +13,9 @@ native `fccount.cpp` or pure Python) counts every input, except with
 `--deviceCounts`: then an input whose options fall inside
 `DeviceCounter`'s subset is counted on the device, and the others go to
 the host engine, as in subread_tpu.  The device path counts on the one
-device `--device` names; the mesh path waits for the port's multi-GPU
-work.
+device `--device` names; with `--device cuda` and more than one visible
+card it counts over every card (`DeviceCounter.count_sharded`), as the
+JAX package counts over `jax.devices()`.
 """
 
 from __future__ import annotations
@@ -146,14 +147,32 @@ def _try_device_count(fc, ann, path, device) -> bool:
         ss, se, gate, stbl = dc.fragments_from_file(path)
     else:
         ss, se, gate, stbl = dc.sections_from_file(path)
-    counts, summary, _, overflow = dc.count(ss, se, gate, stbl)
+    mesh = device_mesh(device)
+    if mesh is not None:
+        counts, summary, overflow = dc.count_sharded(mesh, ss, se, gate, stbl)
+        where = f"{mesh.size} devices"
+    else:
+        counts, summary, _, overflow = dc.count(ss, se, gate, stbl)
+        where = dc.device
     if overflow:
         return False
     fc.counts += counts.astype(fc.counts.dtype)
     for name, v in zip(STATUS_NAMES, summary.tolist()):
         fc.summary[name] += int(v)
-    print(f"// deviceCounts: {path} counted on {dc.device}", file=sys.stderr)
+    print(f"// deviceCounts: {path} counted on {where}", file=sys.stderr)
     return True
+
+
+def device_mesh(device):
+    """The mesh of every visible card when `device` is "cuda" (no index)
+    and more than one card is visible, else None: count on `device`."""
+    import torch
+
+    if device.type == "cuda" and device.index is None and torch.cuda.device_count() > 1:
+        from ..parallel.mesh import make_mesh
+
+        return make_mesh()
+    return None
 
 
 def main(argv=None) -> int:

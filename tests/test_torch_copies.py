@@ -6,7 +6,9 @@ native host library (through it and through its pure-Python fallback),
 read packing, the indel DP and the command-line options; featureCounts'
 host engine (native and pure Python, SAM and BAM, single-end and paired)
 and its native wrappers; cellCounts' barcode matcher, UMI merge and cell
-calling; sublong's banded alignment and chaining."""
+calling; sublong's banded alignment and chaining; exactSNP's pileup
+(native `snppile.cpp` through `snp_pileup_bam`, and the Python record
+path) and calls, and the host tools' helpers and assembler."""
 
 import dataclasses
 import gzip
@@ -580,3 +582,97 @@ def test_featurecounts_parser_same_namespace(argv):
     j = vars(jfcli.build_parser().parse_args(argv))
     t = vars(tfcli.build_parser().parse_args(argv))
     assert t.pop("device") == "cuda" and j == t
+
+
+def _snp_bam(fasta, path, n=400, seed=51):
+    """Reads from the FASTA's first contig with substitutions, soft clips,
+    short insertions and deletions, both strands, some low-quality bases,
+    unmapped records and a record on a contig the FASTA lacks, as BAM."""
+    rng = np.random.default_rng(seed)
+    contigs = tfasta.read_fasta(fasta)
+    g = contigs[0].codes
+    w = tsam.make_writer(str(path), [c.name for c in contigs] + ["chrX"],
+                         [len(c.codes) for c in contigs] + [5000], sam_output=False)
+    for i in range(n):
+        p = int(rng.integers(2000, len(g) - 200))
+        kind = i % 5
+        if kind == 0:
+            seg, cigar = g[p:p + 100], "100M"
+        elif kind == 1:
+            seg, cigar = np.concatenate([g[p:p + 50], g[p + 53:p + 103]]), "50M3D50M"
+        elif kind == 2:
+            ins = rng.integers(0, 4, 2).astype(np.uint8)
+            seg, cigar = np.concatenate([g[p:p + 40], ins, g[p + 40:p + 98]]), "40M2I58M"
+        elif kind == 3:
+            seg, cigar = np.concatenate([rng.integers(0, 4, 5).astype(np.uint8),
+                                         g[p:p + 95]]), "5S95M"
+        else:
+            seg, cigar = g[p:p + 100], "100M"
+        seg = seg.copy()
+        err = rng.random(len(seg)) < 0.03
+        seg[err] = (seg[err] + 1) % 4
+        qual = "".join(chr(33 + int(q)) for q in rng.integers(5, 41, len(seg)))
+        flag = 16 if i % 2 else 0
+        name = contigs[0].name
+        if i % 37 == 0:
+            w.write(tsam.SamRecord(f"u{i}", 4, "*", 0, 0, "*", "*", 0, 0,
+                                   tdna.decode(seg), qual))
+            continue
+        if i % 41 == 0:
+            name = "chrX"
+        w.write(tsam.SamRecord(f"r{i}", flag, name, p + 1, 40, cigar, "*", 0, 0,
+                               tdna.decode(seg), qual))
+    w.close()
+    return str(path)
+
+
+def test_snp_pileup_and_calls_equal(fasta, tmp_path, native_mode):
+    """SNPCaller.add_sam on a BAM: through snp_pileup_bam (native) or the
+    Python record path (fallback); equal piles, indel tables and calls."""
+    from subread_tpu.quant import snp as jsnp
+    from subread_tpu_torch.quant import snp as tsnp
+
+    bam = _snp_bam(fasta, tmp_path / "s.bam")
+    callers = []
+    for mod in (jsnp, tsnp):
+        c = mod.SNPCaller(fasta)
+        assert c._add_bam_native(bam) is (native_mode == "native")
+        c = mod.SNPCaller(fasta)
+        c.add_sam(bam)
+        callers.append(c)
+    j, t = callers
+    assert j.piles.keys() == t.piles.keys()
+    for name in j.piles:
+        assert_same(j.piles[name].votes, t.piles[name].votes, name)
+        assert j.piles[name].indels == t.piles[name].indels, name
+        assert list(j.call_chrom(name)) == list(t.call_chrom(name)), name
+    first = next(iter(t.piles))
+    assert t.piles[first].votes.sum() > 20_000 and t.piles[first].indels
+
+
+def test_host_tool_helpers_equal(fasta, tmp_path):
+    """utilities' SAM/BAM record and header readers, globalReassembly's
+    k-mer keys and assembler, on the same inputs."""
+    from subread_tpu.tools import globalreassembly as jga
+    from subread_tpu.tools import utilities as jutil
+    from subread_tpu_torch.tools import globalreassembly as tga
+    from subread_tpu_torch.tools import utilities as tutil
+
+    bam = _snp_bam(fasta, tmp_path / "s.bam", n=120)
+    sam = tmp_path / "s.sam"
+    sam.write_text("\n".join(tutil._sam_header(bam)) + "\n" + "".join(
+        "\t".join(f) + "\n" for f in tutil._sam_records(bam)))
+    for path in (bam, str(sam)):
+        assert list(jutil._sam_records(path)) == list(tutil._sam_records(path))
+        assert jutil._sam_header(path) == tutil._sam_header(path)
+    rng = np.random.default_rng(5)
+    src = rng.integers(0, 4, 1500).astype(np.uint8)
+    reads = [src[p:p + 100] for p in rng.permutation(range(0, 1401, 30))]
+    assert_same(jga._kmer_keys(reads[0]), tga._kmer_keys(reads[0]))
+    contigs = []
+    for mod in (jga, tga):
+        asm = mod.Assembler(reads, 2, 2)
+        contigs.append([asm.assemble_from(i) for i in range(0, len(reads), 7)])
+    assert_same(contigs[0], contigs[1])
+    assert max(len(c) for c in contigs[1] if c is not None) > 1000
+

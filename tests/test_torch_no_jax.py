@@ -6,7 +6,11 @@ reads, then 64 pairs (-R), on the CPU through the CLI; then run subjunc
 with --allJunctions on 64 spliced reads and on 64 spliced pairs, sublong on
 4 long reads, featureCounts with --deviceCounts on the aligned reads, and
 cellCounts on 200 read pairs.  Each new CLI refuses --device cuda where
-no card is present, --deviceCounts included."""
+no card is present, --deviceCounts included.  In a second such
+subprocess, the host-only tools (exactSNP, subindel, globalReassembly and
+the utilities) run on the port's own aligned reads, and the sharded align
+step and featureCounts' mesh counting run on a mesh of the CPU named
+twice."""
 
 import os
 import subprocess
@@ -143,3 +147,70 @@ def test_new_clis_refuse_cuda_without_a_card(tmp_path, cli, explicit):
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         main(argv)
     assert sorted(p.name for p in tmp_path.iterdir()) == ["g.gtf", "r.sam"]
+
+
+TOOLS_SCRIPT = r"""
+import os, sys, tempfile
+sys.modules["jax"] = None
+sys.modules["subread_tpu"] = None
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import subread_tpu_torch.parallel as par
+from subread_tpu_torch.align.pipeline import Aligner
+from subread_tpu_torch.config import aligner_config
+from subread_tpu_torch.index.build import build_hash_index
+from subread_tpu_torch.io.gtf import load_annotation
+from subread_tpu_torch.quant.device_count import DeviceCounter
+from subread_tpu_torch.synth import (
+    synthetic_genes, synthetic_genome, synthetic_snp_sample, write_fastq,
+    write_genes_gtf, write_genome_fasta)
+from subread_tpu_torch.tools import align, exactsnp, globalreassembly, subindel, utilities
+d = tempfile.mkdtemp()
+p = lambda name: os.path.join(d, name)
+g = synthetic_genome(60_000, seed=2)
+g.save(p("idx"))
+idx = build_hash_index(g, index_gap=1)
+idx.save(p("idx"))
+write_genome_fasta(p("g.fa"), g)
+reads, snps = synthetic_snp_sample(g, seed=3, region_len=4000, coverage=20)
+write_fastq(p("r.fq"), reads)
+align.main(["-t", "1", "-i", p("idx"), "-r", p("r.fq"), "-o", p("a.bam"), "--device", "cpu"])
+assert exactsnp.main(["-g", p("g.fa"), "-i", p("a.bam"), "-o", p("a.vcf")]) == 0
+assert subindel.main(["-i", p("a.bam"), "-g", p("g.fa"), "-o", p("si.vcf")]) == 0
+assert utilities.main(["sam2fq", "-i", p("a.bam"), "-o", p("back.fq")]) == 0
+assert globalreassembly.main(["-i", p("back.fq"), "-o", p("c.fa"), "-L", "300"]) == 0
+assert utilities.main(["propmapped", "-i", p("a.bam")]) == 0
+al = Aligner(g, idx, aligner_config(batch_reads=128), device="cpu")
+codes, ambig, lens, _ = al._pad_batch(reads)
+codes, ambig, lens = codes[:256], ambig[:256], lens[:256]
+res = par.sharded_align_step(par.make_mesh(devices=["cpu"] * 2), al)(codes, ambig, lens)
+single = al._device_align(*al._upload_reads(codes, ambig, lens))
+same = all(bool((res[k] == single[k]).all()) for k in single)
+genes = synthetic_genes(g, 3, seed=4, exons=(2, 3))
+write_genes_gtf(p("g.gtf"), genes)
+dc = DeviceCounter(load_annotation(p("g.gtf")), device="cpu")
+secs = dc.sections_from_file(p("a.bam"))
+counted = dc.count_sharded(par.make_mesh(devices=["cpu"] * 2), *secs)[0].tolist() \
+    == dc.count(*secs)[0].tolist()
+loaded = sorted(m for m, v in sys.modules.items() if v is not None
+                and (m in ("jax", "subread_tpu") or m.startswith(("jax.", "subread_tpu."))))
+n_calls = sum(1 for l in open(p("a.vcf")) if not l.startswith("#"))
+n_contigs = open(p("c.fa")).read().count(">")
+print(len(reads), len(snps), n_calls, n_contigs, same, counted, loaded)
+"""
+
+
+def test_host_tools_and_parallel_without_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", TOOLS_SCRIPT, REPO], capture_output=True, text=True,
+        timeout=300, cwd=REPO, env={**os.environ, "OMP_NUM_THREADS": "1"},
+    )
+    assert proc.returncode == 0, proc.stderr
+    *tool_out, last = proc.stdout.strip().splitlines()
+    n_reads, n_snps, n_calls, n_contigs, same, counted, loaded = last.split(maxsplit=6)
+    assert int(n_reads) == 800 and int(n_snps) == 4
+    assert int(n_calls) >= 3 and int(n_contigs) >= 1
+    assert same == "True" and counted == "True"
+    assert tool_out[0] == "Sample\tNumReads\tNumMapped\tPropMapped"
+    assert "exactSNP:" in proc.stderr and "subindel:" in proc.stderr
+    assert loaded.strip() == "[]"
