@@ -130,9 +130,10 @@ Phases; each one passes or ends the run with a non-zero exit:
      one device on every field of VoteResult (phase 1's index, split and
      stacked on the host, its seconds printed); DeviceCounter.count_sharded
      on phase 3's sections equal to count; map_long_reads_sharded on 20 of
-     phase 11's long reads equal to map_long_reads; then torch.distributed
-     at world size 1 over NCCL: init, psum_stats, allgather_event_table, a
-     barrier, destroy.
+     phase 11's long reads equal to map_long_reads (each path's launches
+     counted over its one checked pass, apart from the timing repeats);
+     then torch.distributed at world size 1 over NCCL: init, psum_stats,
+     allgather_event_table, a barrier, destroy.
 
 The thresholds of phases 8, 9, 11, 13 and 14 come from a CPU run of the
 package on the same seeds or generator at a small size (PERF.md).  Every
@@ -1320,12 +1321,21 @@ def main() -> int:
     t = time.time()
     hits_one = longread.map_long_reads(al15, lr15)
     t_long_one = time.time() - t
-    probe.probe_hits.launches = 0
+    md_launches = {}
+
+    def counted(path, fn):
+        # one checked pass of a mesh path, its launches counted from 0;
+        # the timing repeats run outside
+        probe.probe_hits.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        md_launches[path] = md_launches.get(path, 0) + probe.probe_hits.launches
+        return out
+
     for label, mdevs, (nr, ni) in meshes:
         mesh = pmesh.make_mesh(devices=mdevs)
         step = pmesh.sharded_align_step(mesh, al_cuda)
-        got = step(c15, a15, l15)
-        torch.cuda.synchronize()
+        got = counted("sharded_align_step", lambda: step(c15, a15, l15))
         bad = [k for k in single15 if not torch.equal(got[k].to(dev), single15[k])]
         check(sorted(got) == sorted(single15) and not bad,
               f"phase 15 [{label}]: sharded_align_step differs from _device_align on {bad}")
@@ -1339,7 +1349,8 @@ def main() -> int:
         m2 = index_shard.make_mesh_2d(nr, ni, mdevs)
         placed = index_shard.place_sharded_index(m2, bs15, cb15, sb15, sl15)
         vstep = index_shard.index_sharded_vote(m2, bits15, vp15, sub_bits=sbits15)
-        vgot = vstep(r15.codes, r15.ambig, r15.lengths.astype(np.int32), *placed)
+        vgot = counted("index_sharded_vote", lambda: vstep(
+            r15.codes, r15.ambig, r15.lengths.astype(np.int32), *placed))
         bad = [f for f in fold._fields if not torch.equal(getattr(vgot, f).to(dev),
                                                          getattr(fold, f))]
         check(not bad, f"phase 15 [{label}]: index_sharded_vote differs from the "
@@ -1347,12 +1358,14 @@ def main() -> int:
         print(f"phase 15 [{label}]: index_sharded_vote on a {nr} x {ni} mesh, 4096 "
               f"reads, bit-equal to the block fold on one device on every field; "
               f"{int((vgot.votes[:, 0] > 0).sum())} reads with a candidate")
-        c_sh, s_sh, ov_sh = dc15.count_sharded(mesh, *secs15)
+        c_sh, s_sh, ov_sh = counted("count_sharded",
+                                    lambda: dc15.count_sharded(mesh, *secs15))
         check(np.array_equal(c_sh, c_one) and np.array_equal(s_sh, s_one)
               and ov_sh == ov_one,
               f"phase 15 [{label}]: count_sharded differs from count")
         t = time.time()
-        hits_sh = longread.map_long_reads_sharded(al15, lr15, mesh)
+        hits_sh = counted("map_long_reads_sharded",
+                          lambda: longread.map_long_reads_sharded(al15, lr15, mesh))
         t_long_sh = time.time() - t
         check([h.__dict__ for h in hits_sh] == [h.__dict__ for h in hits_one],
               f"phase 15 [{label}]: map_long_reads_sharded differs from map_long_reads")
@@ -1361,10 +1374,12 @@ def main() -> int:
               f"map_long_reads_sharded on {n_lr15} long reads equal to "
               f"map_long_reads ({sum(h.mapped for h in hits_one)} mapped; "
               f"{t_long_sh:.2f}s against {t_long_one:.2f}s)")
-    torch.cuda.synchronize()
-    launches["multi-device (phase 15)"] = probe.probe_hits.launches
-    check(launches["multi-device (phase 15)"] > 0,
-          "phase 15: the multi-device paths never launched the probe_hits kernel")
+    launches["multi-device (phase 15)"] = sum(md_launches.values())
+    for path in ("sharded_align_step", "index_sharded_vote", "map_long_reads_sharded"):
+        check(md_launches[path] > 0,
+              f"phase 15: {path} never launched the probe_hits kernel")
+    print(f"phase 15: probe_hits launches of one checked pass of each mesh path "
+          f"(summed over {len(meshes)} mesh(es)): {json.dumps(md_launches)}")
     del al_cuda, al15, single15, fold, vgot, placed, shards, cb15
     torch.cuda.empty_cache()
     # torch.distributed at world size 1 over NCCL

@@ -415,16 +415,20 @@ class Aligner:
             res = self._rescue_fold(codes, ambig, lens, res, uniform_len)
         return res
 
-    def _rescue_fold(self, codes, ambig, lens, res, uniform_len):
+    def _rescue_fold(self, codes, ambig, lens, res, uniform_len,
+                     align_rows=None):
         """Compact the saturated reads (up to each tier's capacity),
         re-align them through the tier's wider pass and scatter the results
-        back; rows past a capacity keep their flag for the host pass."""
+        back; rows past a capacity keep their flag for the host pass.
+        `align_rows` runs one tier's pass (default `_device_align`; the
+        mesh step passes one that splits the rows over its devices)."""
+        align_rows = align_rows or self._device_align
         for vp, cap in self.rescue_tiers:
             rb = min(cap, codes.shape[0])
             idx_r, valid_r, codes_r, ambig_r, lens_r = self._sat_compact(
                 res["saturated"], codes, ambig, lens, rb
             )
-            res_r = self._device_align(
+            res_r = align_rows(
                 codes_r, ambig_r, lens_r, uniform_len=uniform_len,
                 rescue=True, vp=vp,
             )

@@ -17,7 +17,6 @@ the collectives then return their local input.
 from __future__ import annotations
 
 import os
-from datetime import timedelta
 
 import numpy as np
 import torch
@@ -32,7 +31,6 @@ def init_distributed(
     num_processes: int | None = None,
     process_id: int | None = None,
     device="cuda",
-    timeout_s: float = 600.0,
 ) -> bool:
     """Start the process group.  The coordinator (`host:port` or
     `tcp://host:port`) comes from the argument or from
@@ -52,8 +50,7 @@ def init_distributed(
         raise ValueError("init_distributed needs num_processes and process_id")
     dev = resolve_device(device)
     url = coordinator if "://" in coordinator else f"tcp://{coordinator}"
-    kw = dict(init_method=url, world_size=num_processes, rank=process_id,
-              timeout=timedelta(seconds=timeout_s))
+    kw = dict(init_method=url, world_size=num_processes, rank=process_id)
     if dev.type == "cuda":
         dev = torch.device("cuda", process_id % torch.cuda.device_count()
                            if dev.index is None else dev.index)

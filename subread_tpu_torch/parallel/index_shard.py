@@ -31,7 +31,8 @@ import torch
 
 from ..index.build import HashIndex, native_layout, revcomp_keys_np
 from ..ops.vote import VoteParams, VoteResult, merge_vote_results, vote_batch
-from .mesh import Mesh, device_array, mesh_devices, tensor_on, visible_cards
+from .mesh import (Mesh, device_array, mesh_devices, row_blocks, tensor_on,
+                   visible_cards)
 
 READS_AXIS = "reads"
 INDEX_AXIS = "index"
@@ -177,13 +178,8 @@ def index_sharded_vote(
     first = mesh.devices[0, 0]
 
     def step(codes, ambig, lens, d_bs, d_cb, d_sb, d_sl):
-        R = codes.shape[0]
-        if R % n_rows:
-            raise ValueError(f"{R} reads do not split over {n_rows} mesh rows")
-        per = R // n_rows
         partial = []
-        for r in range(n_rows):
-            sl_r = slice(r * per, (r + 1) * per)
+        for r, sl_r in enumerate(row_blocks(codes.shape[0], n_rows)):
             row = []
             for s in range(n_shards):
                 d = mesh.devices[r, s]

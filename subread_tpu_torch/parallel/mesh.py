@@ -118,19 +118,24 @@ def tensor_on(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
+def row_blocks(n_rows: int, n_parts: int) -> list[slice]:
+    """The n_parts equal consecutive blocks of a leading axis of n_rows;
+    n_parts must divide n_rows, as a sharded leading axis must in JAX."""
+    if n_rows % n_parts:
+        raise ValueError(f"leading dimension {n_rows} is not a multiple of "
+                         f"the mesh size {n_parts} along the split axis")
+    per = n_rows // n_parts
+    return [slice(i * per, (i + 1) * per) for i in range(n_parts)]
+
+
 def shard_batch(mesh: Mesh, *arrays):
     """Split each array's leading axis into mesh.size equal parts, part i
     on the mesh's i-th device (in flat order).  Returns one list of parts
     per array."""
     devs = list(mesh.devices.flat)
-    out = []
-    for a in arrays:
-        if a.shape[0] % len(devs):
-            raise ValueError(f"leading dimension {a.shape[0]} is not a "
-                             f"multiple of the mesh size {len(devs)}")
-        per = a.shape[0] // len(devs)
-        out.append([tensor_on(a[i * per:(i + 1) * per], d) for i, d in enumerate(devs)])
-    return tuple(out)
+    return tuple([tensor_on(a[sl], d)
+                  for sl, d in zip(row_blocks(a.shape[0], len(devs)), devs)]
+                 for a in arrays)
 
 
 def replicate(mesh: Mesh, *arrays):
@@ -175,39 +180,31 @@ def sharded_align_step(mesh: Mesh, aligner):
     views = {d: aligner_on(aligner, d) for d in mesh.distinct()}
     first = devs[0]
 
-    def tier(vp, cap, codes, ambig, lens, res, ul):
-        # compaction over the whole batch on the first device, as the
-        # single-device _rescue_fold does; the tier's rows split again
-        rb = min(cap, codes.shape[0])
-        idx_r, valid_r, codes_r, ambig_r, lens_r = aligner._sat_compact(
-            res["saturated"], codes, ambig, lens, rb
-        )
+    def split_pass(codes, ambig, lens, uniform_len, rescue, vp):
+        # one tier's compacted rows, split over the devices and gathered
         chunks = zip(devs, *(torch.tensor_split(x, len(devs))
-                             for x in (codes_r, ambig_r, lens_r)))
-        parts = [
-            views[d]._device_align(c.to(d), a.to(d), ln.to(d), uniform_len=ul,
-                                   rescue=True, vp=vp)
+                             for x in (codes, ambig, lens)))
+        return gather_rows([
+            views[d]._device_align(c.to(d), a.to(d), ln.to(d),
+                                   uniform_len=uniform_len, rescue=rescue,
+                                   vp=vp)
             for d, c, a, ln in chunks
-        ]
-        return aligner._sat_scatter(res, gather_rows(parts, first), idx_r, valid_r)
+        ], first)
 
     def step(codes, ambig, lens):
-        R = codes.shape[0]
-        if R % len(devs):
-            raise ValueError(f"{R} reads do not split over {len(devs)} devices")
-        per = R // len(devs)
         ul = uniform_length(np.asarray(lens))
         inputs, parts = [], []
-        for i, d in enumerate(devs):
-            sl = slice(i * per, (i + 1) * per)
+        for d, sl in zip(devs, row_blocks(codes.shape[0], len(devs))):
             dc, da, dl = views[d]._upload_reads(codes[sl], ambig[sl], lens[sl])
             inputs.append(dict(codes=dc, ambig=da, lens=dl))
             parts.append(views[d]._device_align(dc, da, dl, uniform_len=ul))
         res = gather_rows(parts, first)
         if aligner.rescue_fold_cap:
+            # the tiers compact over the whole batch on the first device,
+            # as the single-device fold does
             x = gather_rows(inputs, first)
-            for vp, cap in aligner.rescue_tiers:
-                res = tier(vp, cap, x["codes"], x["ambig"], x["lens"], res, ul)
+            res = aligner._rescue_fold(x["codes"], x["ambig"], x["lens"], res,
+                                       ul, align_rows=split_pass)
         return res
 
     return step

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from ..device import floor_log2, resolve_device, upload
-from ..parallel.mesh import axis_devices, mesh_devices
+from ..parallel.mesh import axis_devices, mesh_devices, row_blocks
 
 NONE = -1  # label: no feature covers this span
 
@@ -728,10 +728,8 @@ class DeviceCounter:
             )
             gate = np.pad(gate, (0, pad), constant_values=ST_PAD)
             strand_tbl = np.pad(strand_tbl, (0, pad))
-        per = (R + pad) // n
         parts = []
-        for i, d in enumerate(devs):
-            sl = slice(i * per, (i + 1) * per)
+        for d, sl in zip(devs, row_blocks(R + pad, n)):
             up = lambda a: upload(np.ascontiguousarray(a[sl], dtype=np.int32), d)
             parts.append(self._kernel(up(sec_start), up(sec_end), up(gate),
                                       up(strand_tbl), tables=self._tables_on(d)))
