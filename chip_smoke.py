@@ -16,8 +16,15 @@ Phases; each one passes or ends the run with a non-zero exit:
   1. build the CUDA kernel (subread_tpu_torch/csrc/probe_hits.cu) with nvcc;
      set-up: a synthetic genome (contigs, segmental duplications, tandem
      arrays of 20-60 copies, N runs), its full hash index (index_gap=1)
-     saved under build/smoke/, and simulated 100 bp reads (1% errors,
-     indels, some N) written as FASTQ;
+     saved under build/smoke/ uncompressed (np.savez in the layout of the
+     port's own writer, which load_index_any reads unchanged), and
+     simulated 100 bp reads (1% errors, indels, some N) written as FASTQ;
+     then the genome as FASTA and the index a user builds from it by
+     default: `python -m subread_tpu_torch.tools.buildindex` with no -F
+     (every third 16-mer, index_gap=3), saved compressed by the port's
+     writer and loaded back, its index_gap checked; the seconds of the
+     FASTA write, the build and the save, and the gapped index's entries,
+     max_run, bucket_bits, sub_bits and search_steps;
   2. the kernel against its plain PyTorch version on the same CUDA tensors,
      at the main path's shape (8192 reads x 20 probes, H=16) and at the
      rescue tiers' wide shapes (H = rescue_hits; the shapes are
@@ -113,7 +120,7 @@ Phases; each one passes or ends the run with a non-zero exit:
      SNP per kb in 2 Mb of the first contig, half heterozygous, 30x of
      100 bp reads with 1% errors from either haplotype, about 600,000
      reads): aligned through the CLI on the card with BAM out (the
-     kernel launched), the genome written as FASTA, `python -m
+     kernel launched), phase 1's FASTA of the genome, `python -m
      subread_tpu_torch.tools.exactsnp` over the whole BAM (its seconds),
      the recall of homozygous and of heterozygous planted SNPs and the
      precision; on the first 20,000 reads, over the first contig, the
@@ -127,22 +134,37 @@ Phases; each one passes or ends the run with a non-zero exit:
      of phase 3's reads bit-equal to _device_align on every key, with the
      times of both; index_sharded_vote on 4096 reads against an index
      split into 2 position-range shards, bit-equal to the block fold on
-     one device on every field of VoteResult (phase 1's index, split and
-     stacked on the host, its seconds printed); DeviceCounter.count_sharded
+     one device on every field of VoteResult (phase 1's gapped index,
+     split and stacked on the host, its seconds printed); DeviceCounter.count_sharded
      on phase 3's sections equal to count; map_long_reads_sharded on 20 of
      phase 11's long reads equal to map_long_reads (each path's launches
      counted over its one checked pass, apart from the timing repeats);
      then torch.distributed at world size 1 over NCCL: init, psum_stats,
-     allgather_event_table, a barrier, destroy.
+     allgather_event_table, a barrier, destroy;
+ 16. the gapped index of phase 1 (subread-buildindex's default): the
+     kernel against its plain version on it at subread-align's three
+     shapes and subjunc's main shape (H=16; the vote probes each subread
+     at its 3 offsets, so [8192 x 60] and [8192 x 84]), bit-equal and
+     timed as in phase 2; subread-align through the CLI on phase 3's
+     reads (one primary record per read, mapped fraction and the share
+     within 1200 bp of the truth against GAPPED_MIN, the kernel
+     launched); subjunc with --allJunctions through the CLI on phase 9's
+     pairs (the checks of phase 9 against GAPPED_SUBJUNC_PE_MIN, the
+     kernel launched); then phase 4's 8192 reads and phase 10's 4096
+     pairs (subjunc --allJunctions) on the CPU and on the card: identical
+     SAM records and .indel.vcf, and for the pairs .junction.bed and
+     .breakpoints.vcf.
 
-The thresholds of phases 8, 9, 11, 13 and 14 come from a CPU run of the
+The thresholds of phases 8, 9, 11, 13, 14 and 16 come from a CPU run of the
 package on the same seeds or generator at a small size (PERF.md).  Every
 path's kernel launches are counted from 0 just before it is driven and
 read just after; the counts are printed on one line.  It prints the
+seconds of every phase as one JSON line ({"phase_seconds": {...}}), the
 card's `nvidia-smi --query-gpu=name,power.limit` line and a JSON line
 describing the kernel, whose launches are those of the four main paths
-(phases 3, 5, 8 and 9; sublong's, cellCounts', phase 14's alignment and
-phase 15's multi-device paths are beside them under launches_by_path)
+(phases 3, 5, 8 and 9; sublong's, cellCounts', phase 14's alignment,
+phase 15's multi-device paths and phase 16's runs on the card are beside
+them under launches_by_path)
 and whose times and bound are phase 2's at the main shape: ms and
 plain_ms per call, device_ms and plain_device_ms on the card (library_ms
 is null: no single PyTorch call computes this function), then as its last
@@ -179,6 +201,14 @@ CELLCOUNTS_MIN = dict(cells_found=0.9, assigned=0.5)
 # lower bounds of phase 14 (exactSNP), set below the JAX package's figures
 # on the same generator at a small size (tests/test_torch_exactsnp.py)
 EXACTSNP_MIN = dict(hom_recall=0.85, het_recall=0.85, precision=0.9)
+# lower bounds of phase 3 (subread-align on the full index)
+SINGLE_END_MIN = dict(mapped=0.9, near_truth=0.98)
+# lower bounds of phase 16 (the gapped index: subread-align single-end,
+# subjunc paired-end with --allJunctions), set below the JAX package's
+# figures on the same generators at a small size (tests/test_torch_gapped.py)
+GAPPED_MIN = dict(mapped=0.9, near_truth=0.98)
+GAPPED_SUBJUNC_PE_MIN = dict(mapped=0.9, proper=0.4, spliced_share=0.8,
+                             recall=0.9, precision=0.9, fusions=0.6)
 
 
 def fail(msg: str) -> None:
@@ -249,21 +279,51 @@ def head_fastq(src: Path, dst: Path, n: int) -> None:
             out.write(f.readline())
 
 
-def cpu_cuda_agree(phase: str, run, n: int) -> None:
+def cpu_cuda_agree(phase: str, run, n: int, side=(".indel.vcf",)) -> int:
     """run(device) aligns on that device and returns its SAM's path; the
-    CPU's and the card's SAM records and .indel.vcf must be identical."""
-    outs = {}
+    CPU's and the card's SAM records and side files (SAM path + each
+    suffix) must be identical.  Returns the card's run's kernel launches."""
+    outs, n_launched = {}, {}
     for d in ("cpu", "cuda"):
         t = time.time()
-        outs[d] = run(d)
+        outs[d], n_launched[d] = launched(lambda: run(d))
         print(f"{phase}: {n} on {d} in {time.time() - t:.1f}s")
     check(sam_records(outs["cpu"]) == sam_records(outs["cuda"]),
           f"{phase}: SAM records differ between cpu and cuda")
-    check(Path(str(outs["cpu"]) + ".indel.vcf").read_text()
-          == Path(str(outs["cuda"]) + ".indel.vcf").read_text(),
-          f"{phase}: .indel.vcf differs between cpu and cuda")
+    for suf in side:
+        check(Path(str(outs["cpu"]) + suf).read_text()
+              == Path(str(outs["cuda"]) + suf).read_text(),
+              f"{phase}: {suf} differs between cpu and cuda")
     print(f"{phase}: cpu and cuda agree on {len(sam_records(outs['cpu']))} "
-          f"SAM records and the .indel.vcf")
+          f"SAM records and the {', '.join(side)}")
+    return n_launched["cuda"]
+
+
+def single_end_metrics(sam, n_reads: int) -> dict:
+    """What phases 3 and 16 check on a subread-align SAM of simulated reads:
+    the primary records and their distinct names, the mapped fraction of
+    the n_reads reads, and the share of mapped reads within 1200 bp of the
+    position their name records (contig_pos1_...; synth.synthetic_reads)."""
+    primary = [r.split("\t", 4) for r in sam_records(sam)]
+    primary = [f for f in primary if int(f[1]) & 0x900 == 0]
+    mapped = [f for f in primary if not int(f[1]) & 4]
+    near = sum(1 for f in mapped if f[2] == f[0].split("_")[0]
+               and abs(int(f[3]) - int(f[0].split("_")[1])) <= 1200)
+    return dict(primary=len(primary), distinct=len({f[0] for f in primary}),
+                mapped=len(mapped) / n_reads,
+                near_truth=near / max(len(mapped), 1))
+
+
+def launched(fn):
+    """fn() with probe_hits' launches counted from 0 to a synchronise after
+    it: (its result, the launches)."""
+    import torch
+    from subread_tpu_torch.ops import probe
+
+    probe.probe_hits.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, probe.probe_hits.launches
 
 
 def steps_line(secs: dict) -> str:
@@ -497,6 +557,14 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=7)
     args = ap.parse_args()
     t_start = time.time()
+    phase_seconds, t_phase = {}, [t_start]
+
+    def done(phase: int) -> None:
+        # the seconds of a phase, from the end of the one before
+        phase_seconds[phase] = time.time() - t_phase[0]
+        t_phase[0] = time.time()
+        print(f"chip_smoke: phase {phase} took {phase_seconds[phase]:.1f}s",
+              flush=True)
 
     import torch
 
@@ -512,7 +580,9 @@ def main() -> int:
     )
     from subread_tpu_torch.config import subjunc_config
     from subread_tpu_torch.device import resolve_device, upload
-    from subread_tpu_torch.index.build import build_hash_index
+    from subread_tpu_torch.index import build as index_build
+    from subread_tpu_torch.index.build import HashIndex, build_hash_index
+    from subread_tpu_torch.index.genome import Genome
     from subread_tpu_torch.io.fastq import ReadBatch, batch_from_records
     from subread_tpu_torch.io.gtf import load_annotation
     from subread_tpu_torch.ops import probe
@@ -532,6 +602,7 @@ def main() -> int:
     )
     from subread_tpu_torch.timing import first_block_vote, host_seconds, stage_ms
     from subread_tpu_torch.tools import align as align_cli
+    from subread_tpu_torch.tools import buildindex as buildindex_cli
     from subread_tpu_torch.tools import cellcounts as cc_cli
     from subread_tpu_torch.tools import exactsnp as exactsnp_cli
     from subread_tpu_torch.tools import featurecounts as fc_cli
@@ -557,8 +628,11 @@ def main() -> int:
               "and the indel DP use their pure-Python fallbacks")
     else:
         print(f"native host library: built ({native._build().name})")
+    print(f"disk free under the checkout: "
+          f"{shutil.disk_usage(ROOT).free / 1e9:.1f} GB")
     kind = torch.cuda.get_device_name(0)
     dev = torch.device("cuda", 0)
+    done(0)
 
     # ---- phase 1: build the kernel, set-up data ----------------------
     t = time.time()
@@ -580,8 +654,13 @@ def main() -> int:
     index = build_hash_index(genome, index_gap=1)
     t_index = time.time() - t
     t = time.time()
-    genome.save(prefix)
-    index.save(prefix)
+    # written uncompressed in the port's own layout, which load_index_any
+    # reads unchanged: its compressed save and each CLI's load of it were
+    # the run's largest fixed costs (PERF.md); phase 16's index goes
+    # through the real writer
+    with patched(np, "savez_compressed", np.savez):
+        genome.save(prefix)
+        index.save(prefix)
     t_save = time.time() - t
     t = time.time()
     reads = synthetic_reads(genome, args.reads, seed=args.seed + 1)
@@ -596,8 +675,38 @@ def main() -> int:
     t_pairs = time.time() - t
     print(f"set-up: genome {genome.total} bases ({t_gen:.1f}s), index "
           f"{index.n_items} entries, max_run {index.max_run} ({t_index:.1f}s), "
-          f"saved ({t_save:.1f}s); {len(reads)} reads ({t_reads:.1f}s); "
+          f"saved uncompressed ({t_save:.1f}s, "
+          f"{Path(prefix + '.hash.npz').stat().st_size} bytes); "
+          f"{len(reads)} reads ({t_reads:.1f}s); "
           f"{args.pairs} pairs ({t_pairs:.1f}s)")
+    # the index a user builds by default: the genome as FASTA, then
+    # subread-buildindex with no -F (every third 16-mer, index_gap=3),
+    # saved compressed by the port's own writer
+    fa = work / "genome.fa"
+    t = time.time()
+    write_genome_fasta(str(fa), genome)
+    t_fa = time.time() - t
+    prefix3 = str(work / "idx3")
+    steps = [(index_build, "build_hash_index", "build"),
+             (HashIndex, "save", "save"), (Genome, "save", "save")]
+    t = time.time()
+    with host_seconds(steps) as secs1:
+        run_quiet(buildindex_cli.main, ["-o", prefix3, str(fa)])
+    t_bi = time.time() - t
+    t = time.time()
+    genome3, index3 = align_cli.load_index_any(prefix3)
+    t_load3 = time.time() - t
+    check(isinstance(index3, HashIndex) and index3.index_gap == 3,
+          f"phase 1: buildindex's default index has index_gap "
+          f"{getattr(index3, 'index_gap', None)}, not 3")
+    _, _, sub_bits3, steps3 = index3.sub_dir
+    print(f"phase 1: gapped index: FASTA written ({t_fa:.1f}s); "
+          f"tools.buildindex with default options {t_bi:.1f}s (build "
+          f"{secs1['build']:.1f}s, compressed save {secs1['save']:.1f}s); "
+          f"loaded ({t_load3:.1f}s): index_gap {index3.index_gap}, "
+          f"{index3.n_items} entries, max_run {index3.max_run}, bucket_bits "
+          f"{index3.bucket_bits}, sub_bits {sub_bits3}, search_steps {steps3}")
+    done(1)
 
     # ---- phase 2: kernel against plain on the card -------------------
     cfg = align_cli.config_from_args(
@@ -605,8 +714,7 @@ def main() -> int:
             ["-t", "1", "-i", prefix, "-r", str(fq), "-o", "-"]
         )
     )
-    genome_l, index_l = align_cli.load_index_any(prefix)
-    al_cuda = Aligner(genome_l, index_l, cfg, device=dev)
+    al_cuda = Aligner(genome, index, cfg, device=dev)
     R = 8192
     batch = al_cuda._upload_reads(
         reads.codes[:R], reads.ambig[:R], reads.lengths[:R]
@@ -616,42 +724,31 @@ def main() -> int:
         "phase 2", al_cuda, batch, vp, smoke_shapes(al_cuda, R, subjunc=False))
     del batch
     torch.cuda.empty_cache()
+    done(2)
 
     # ---- phase 3: the main path through the CLI ----------------------
     sam = work / "out.sam"
     argv = ["-t", "1", "-i", prefix, "-r", str(fq), "-o", str(sam),
             "--device", "cuda"]
-    probe.probe_hits.launches = 0
-    run = align_cli.run_align(align_cli.build_parser().parse_args(argv))
-    torch.cuda.synchronize()
-    launches = {"single-end (phase 3)": probe.probe_hits.launches}
-    recs = sam_records(sam)
-    primary = [r.split("\t", 2) for r in recs]   # name, flag, rest
-    primary = [f for f in primary if int(f[1]) & 0x900 == 0]
-    names = [f[0] for f in primary]
-    check(len(names) == len(reads) and len(set(names)) == len(reads),
-          f"{len(names)} primary records for {len(reads)} reads")
-    mapped = [f for f in primary if not int(f[1]) & 4]
-    frac = len(mapped) / len(reads)
-    check(frac >= 0.9, f"mapped fraction {frac:.4f} < 0.9")
-    # simulated names carry the truth (contig_pos1_..., subread_tpu.utils.
-    # simulate): a mapping within 1200 bp of it is correct
-    correct = sum(
-        1 for f in mapped
-        if f[2].split("\t")[0] == f[0].split("_")[0]
-        and abs(int(f[2].split("\t")[1]) - int(f[0].split("_")[1])) <= 1200
-    ) / len(mapped)
-    check(correct >= 0.98, f"only {correct:.4f} of mapped reads at their truth")
+    launches = {}
+    run, launches["single-end (phase 3)"] = launched(
+        lambda: align_cli.run_align(align_cli.build_parser().parse_args(argv)))
+    m3 = single_end_metrics(sam, len(reads))
+    check(m3["primary"] == len(reads) and m3["distinct"] == len(reads),
+          f"{m3['primary']} primary records for {len(reads)} reads")
+    for k, lo in SINGLE_END_MIN.items():
+        check(m3[k] >= lo, f"phase 3: {k} {m3[k]:.4f} < {lo}")
     check(launches["single-end (phase 3)"] > 0,
           "the single-end path never launched the probe_hits kernel")
     rps = len(reads) / run["time_align"]
-    print(f"phase 3: {len(reads)} reads, mapped fraction {frac:.4f}, "
-          f"{correct:.4f} of them within 1200 bp of the truth, "
+    print(f"phase 3: {len(reads)} reads, mapped fraction {m3['mapped']:.4f}, "
+          f"{m3['near_truth']:.4f} of them within 1200 bp of the truth, "
           f"{launches['single-end (phase 3)']} kernel launches; "
           f"{rps:.1f} reads/s over align_file "
           f"({run['time_align']:.2f}s: device+collect+host indel "
           f"{run['time_voting']:.2f}s, read+emit {run['time_io']:.2f}s); "
           f"index load {run['time_load']:.2f}s, upload {run['time_upload']:.2f}s")
+    done(3)
 
     # ---- phase 4: CUDA against CPU ------------------------------------
     n4 = min(8192, len(reads))
@@ -659,20 +756,19 @@ def main() -> int:
     head_fastq(fq, fq4, n4)
 
     def run4(d):
-        al = al_cuda if d == "cuda" else Aligner(genome_l, index_l, cfg, device=d)
+        al = al_cuda if d == "cuda" else Aligner(genome, index, cfg, device=d)
         al.align_file(str(fq4), str(work / f"p4_{d}.sam"))
         return work / f"p4_{d}.sam"
 
     cpu_cuda_agree("phase 4", run4, n4)
+    done(4)
 
     # ---- phase 5: the paired-end path through the CLI ------------------
     sam5 = work / "pe.sam"
     argv = ["-t", "1", "-i", prefix, "-r", str(fq1), "-R", str(fq2),
             "-o", str(sam5), "--device", "cuda"]
-    probe.probe_hits.launches = 0
-    run = align_cli.run_align(align_cli.build_parser().parse_args(argv))
-    torch.cuda.synchronize()
-    launches["paired-end (phase 5)"] = probe.probe_hits.launches
+    run, launches["paired-end (phase 5)"] = launched(
+        lambda: align_cli.run_align(align_cli.build_parser().parse_args(argv)))
     n_pairs = args.pairs
     primary = [r.split("\t", 4) for r in sam_records(sam5)]
     primary = [f for f in primary if int(f[1]) & 0x900 == 0]
@@ -731,6 +827,7 @@ def main() -> int:
           f"{sel_ev / all_ev:.4f} / {sel_wall / all_wall:.4f}")
     del m1, m2, scs
     torch.cuda.empty_cache()
+    done(5)
 
     # ---- phase 6: paired-end, CUDA against CPU -------------------------
     n6 = min(8192, n_pairs)
@@ -739,18 +836,14 @@ def main() -> int:
     head_fastq(fq2, f62, n6)
 
     def run6(d):
-        al = al_cuda if d == "cuda" else Aligner(genome_l, index_l, cfg, device=d)
-        if d == "cuda":
-            probe.probe_hits.launches = 0
+        al = al_cuda if d == "cuda" else Aligner(genome, index, cfg, device=d)
         al.align_file_pe(str(f61), str(f62), str(work / f"p6_{d}.sam"))
-        if d == "cuda":
-            torch.cuda.synchronize()
-            launches["paired-end 8k pairs (phase 6)"] = probe.probe_hits.launches
         return work / f"p6_{d}.sam"
 
-    cpu_cuda_agree("phase 6", run6, n6)
+    launches["paired-end 8k pairs (phase 6)"] = cpu_cuda_agree("phase 6", run6, n6)
     check(launches["paired-end 8k pairs (phase 6)"] > 0,
           "phase 6 never launched the probe_hits kernel")
+    done(6)
 
     # ---- phase 7: the long-indel rescue (-I 60), CUDA against CPU -----
     li = synthetic_long_indel_reads(genome, n_sites=12, n_sim=300,
@@ -762,16 +855,11 @@ def main() -> int:
     ))
 
     def run7(d):
-        al = Aligner(genome_l, index_l, cfg7, device=d)
-        if d == "cuda":
-            probe.probe_hits.launches = 0
+        al = Aligner(genome, index, cfg7, device=d)
         al.align_file(str(fq7), str(work / f"p7_{d}.sam"))
-        if d == "cuda":
-            torch.cuda.synchronize()
-            launches["long-indel -I 60 (phase 7)"] = probe.probe_hits.launches
         return work / f"p7_{d}.sam"
 
-    cpu_cuda_agree("phase 7", run7, len(li))
+    launches["long-indel -I 60 (phase 7)"] = cpu_cuda_agree("phase 7", run7, len(li))
     ops = [(int(n), op) for r in sam_records(work / "p7_cuda.sam")
            for n, op in re.findall(r"(\d+)([DI])", r.split("\t")[5])]
     n_del = sum(1 for n, op in ops if op == "D" and n > 16)
@@ -784,6 +872,7 @@ def main() -> int:
           f"long I CIGAR operations")
     del al_cuda
     torch.cuda.empty_cache()
+    done(7)
 
     # ---- phase 8: subjunc single-end through the CLI -------------------
     t = time.time()
@@ -798,12 +887,9 @@ def main() -> int:
     argv = ["-i", prefix, "-r", str(fq8), "-o", str(sam8), "--device", "cuda"]
     steps = [(Aligner, n, n) for n in
              ("submit_batch", "collect_batch", *JUNCTION_STEPS, "_emit_sam")]
-    probe.probe_hits.launches = 0
     with host_seconds(steps) as secs8:
-        run = align_cli.run_align(subjunc_cli.build_parser().parse_args(argv),
-                                  subjunc=True)
-        torch.cuda.synchronize()
-    launches["subjunc (phase 8)"] = probe.probe_hits.launches
+        run, launches["subjunc (phase 8)"] = launched(lambda: align_cli.run_align(
+            subjunc_cli.build_parser().parse_args(argv), subjunc=True))
     m8 = subjunc_metrics(sam8, sp_truth, len(sp))
     check(m8["primary"] == len(sp) and m8["distinct"] == len(sp),
           f"phase 8: {m8['primary']} primary records for {len(sp)} reads")
@@ -826,7 +912,7 @@ def main() -> int:
     # stages, on one sub-batch, on an aligner with the run's options
     cfg8 = align_cli.config_from_args(subjunc_cli.build_parser().parse_args(
         ["-i", prefix, "-r", "-", "-o", "-"]), subjunc=True)
-    al8 = Aligner(genome_l, index_l, cfg8, device=dev)
+    al8 = Aligner(genome, index, cfg8, device=dev)
     vp = al8.vote_params
     bs = cfg8.batch_reads
     c8, a8, l8 = al8._upload_reads(sp.codes[:bs], sp.ambig[:bs], sp.lengths[:bs])
@@ -844,7 +930,7 @@ def main() -> int:
                     sp.quals[:bs], sp.ambig[:bs])
     res8 = al8.align_batch(sub)
     table = {k: (0, 0, 0) for k in bed_junctions(str(sam8) + ".junction.bed")}
-    ev_l, ev_r, al8._ev_donor = junction_event_arrays(genome_l, table)
+    ev_l, ev_r, al8._ev_donor = junction_event_arrays(genome, table)
     rwe_ev, rwe_wall = stage_ms(
         lambda: al8.rescue_with_events(sub, res8, ev_l, ev_r), 5)
     print(f"phase 8: one {bs}-read sub-batch, medians of the same timed calls "
@@ -856,6 +942,7 @@ def main() -> int:
           f"{rwe_ev:.4f} / {rwe_wall:.4f} ms (5 calls)")
     del al8, c8, a8, l8, v8, sc8, res8
     torch.cuda.empty_cache()
+    done(8)
 
     # ---- phase 9: subjunc paired-end with --allJunctions ---------------
     t = time.time()
@@ -873,12 +960,9 @@ def main() -> int:
     steps = [(Aligner, n, n) for n in
              ("submit_batch_pe", "collect_batch_pe", *JUNCTION_STEPS,
               "_emit_sam_pe")]
-    probe.probe_hits.launches = 0
     with host_seconds(steps) as secs9:
-        run = align_cli.run_align(subjunc_cli.build_parser().parse_args(argv),
-                                  subjunc=True)
-        torch.cuda.synchronize()
-    launches["subjunc-pe (phase 9)"] = probe.probe_hits.launches
+        run, launches["subjunc-pe (phase 9)"] = launched(lambda: align_cli.run_align(
+            subjunc_cli.build_parser().parse_args(argv), subjunc=True))
     n9 = 2 * len(sp1)
     m9 = subjunc_metrics(sam9, spp_truth, n9)
     m9["fusions"] = fusion_share(str(sam9) + ".breakpoints.vcf",
@@ -901,6 +985,7 @@ def main() -> int:
           f"({run['time_align']:.2f}s: collect {run['time_voting']:.2f}s, "
           f"read+host junction steps+fusions+emit {run['time_io']:.2f}s); "
           f"host seconds in {steps_line(secs9)}")
+    done(9)
 
     # ---- phase 10: subjunc --allJunctions -a, CUDA against CPU ---------
     n10, n10p = min(8192, len(sp)), min(4096, len(sp1))
@@ -916,17 +1001,14 @@ def main() -> int:
     annot = align_cli.load_annotated_junctions(sj_args)
     outs = {}
     for d in ("cpu", "cuda"):
-        al = Aligner(genome_l, index_l, cfg_sj, device=dev if d == "cuda" else d)
+        al = Aligner(genome, index, cfg_sj, device=dev if d == "cuda" else d)
         al.annot_junctions = annot
         t = time.time()
+        _, n = launched(lambda: (
+            al.align_file(str(fq10), str(work / f"p10_{d}.sam")),
+            al.align_file_pe(str(f101), str(f102), str(work / f"p10pe_{d}.sam"))))
         if d == "cuda":
-            probe.probe_hits.launches = 0
-        al.align_file(str(fq10), str(work / f"p10_{d}.sam"))
-        al.align_file_pe(str(f101), str(f102), str(work / f"p10pe_{d}.sam"))
-        if d == "cuda":
-            torch.cuda.synchronize()
-            launches["subjunc -a, 8k reads + 4k pairs (phase 10)"] = (
-                probe.probe_hits.launches)
+            launches["subjunc -a, 8k reads + 4k pairs (phase 10)"] = n
         outs[d] = (work / f"p10_{d}.sam", work / f"p10pe_{d}.sam")
         print(f"phase 10: {n10} reads and {n10p} pairs on {d} in "
               f"{time.time() - t:.1f}s")
@@ -943,6 +1025,7 @@ def main() -> int:
           f".junction.bed ({len(bed_junctions(str(outs['cpu'][0]) + '.junction.bed'))} "
           f"and {len(bed_junctions(str(outs['cpu'][1]) + '.junction.bed'))} rows), "
           f".breakpoints.vcf and .indel.vcf")
+    done(10)
 
     # ---- phase 11: sublong through its CLI -----------------------------
     t = time.time()
@@ -961,11 +1044,9 @@ def main() -> int:
              (Aligner, "collect_batch", "collect_batch"),
              (longread, "chain_read", "chain_read"),
              (longread, "banded_align", "banded_align")]
-    probe.probe_hits.launches = 0
     with host_seconds(steps) as secs11:
-        run = sublong_cli.run_sublong(sublong_cli.build_parser().parse_args(argv))
-        torch.cuda.synchronize()
-    launches["sublong (phase 11)"] = probe.probe_hits.launches
+        run, launches["sublong (phase 11)"] = launched(lambda: sublong_cli.run_sublong(
+            sublong_cli.build_parser().parse_args(argv)))
     m11 = long_read_metrics(sam11, len(lr))
     check(m11["records"] == len(lr) and run["total"] == len(lr),
           f"phase 11: {m11['records']} records for {len(lr)} long reads")
@@ -982,7 +1063,7 @@ def main() -> int:
           f"{n_win / run['time_map']:.1f} windows/s over sublong_file "
           f"({run['time_map']:.2f}s; index load and upload "
           f"{run['time_load']:.2f}s); host seconds in {steps_line(secs11)}")
-    al11 = Aligner(genome_l, index_l, sublong_cli.sublong_config(
+    al11 = Aligner(genome, index, sublong_cli.sublong_config(
         sublong_cli.build_parser().parse_args(argv)), device=dev)
     bs = al11.cfg.batch_reads
     win = [lr.codes[i, w * 100:(w + 1) * 100]
@@ -1009,7 +1090,7 @@ def main() -> int:
         for d in ("cpu", "cuda"):
             t = time.time()
             outs[d] = work / f"p11{''.join(rna)}_{d}.sam"
-            longread.sublong_file(Aligner(genome_l, index_l, cfg11,
+            longread.sublong_file(Aligner(genome, index, cfg11,
                                           device=dev if d == "cuda" else d),
                                   str(fq11h), str(outs[d]), sam_output=True)
             print(f"phase 11: {n11} long reads {' '.join(rna)} on {d} in "
@@ -1018,6 +1099,7 @@ def main() -> int:
               f"phase 11: SAM records {' '.join(rna)} differ between cpu and cuda")
         print(f"phase 11: cpu and cuda agree on {len(sam_records(outs['cpu']))} "
               f"SAM records {' '.join(rna)}")
+    done(11)
 
     # ---- phase 12: featureCounts, host engine and --deviceCounts ---------
     t = time.time()
@@ -1115,6 +1197,7 @@ def main() -> int:
           f"parse (sections_from_file) {parse_s:.3f}s; counts equal")
     del rep, secs_x10
     sam10.unlink()
+    done(12)
 
     # ---- phase 13: cellCounts, FASTQ mode, through its CLI -------------
     t = time.time()
@@ -1134,15 +1217,12 @@ def main() -> int:
              (cellcounts, "assign_genes_batch", "assign_genes_batch"),
              (cellcounts.BatchCellCounter, "add_batch", "barcode match (add_batch)"),
              (cellcounts.BatchCellCounter, "write_matrix", "UMI merge, cell calling, write")]
-    probe.probe_hits.launches = 0
     t = time.time()
     with host_seconds(steps) as secs13:
-        err = run_quiet(cc_cli.main, cc_args + [
-            "-r", str(f131), "-R", str(f132), "-o", str(work / "cc"),
-            "--cellCalling", "--device", "cuda"])
-        torch.cuda.synchronize()
+        err, launches["cellCounts (phase 13)"] = launched(lambda: run_quiet(
+            cc_cli.main, cc_args + ["-r", str(f131), "-R", str(f132), "-o",
+                                    str(work / "cc"), "--cellCalling", "--device", "cuda"]))
     t13 = time.time() - t
-    launches["cellCounts (phase 13)"] = probe.probe_hits.launches
     st = re.search(r"(\d+) reads, (\d+) barcode-matched, (\d+) assigned", err)
     n_reads, n_bc, n_assigned = (int(x) for x in st.groups())
     called = (work / "cc" / "barcodes.tsv").read_text().split()
@@ -1163,7 +1243,7 @@ def main() -> int:
           f"{n_reads / t13:.1f} pairs/s through the CLI ({t13:.2f}s with the index "
           f"load); host seconds in {steps_line(secs13)}")
     cfg13 = subjunc_config(batch_reads=2048, report_multi_mapping=True, multi_best=8)
-    al13 = Aligner(genome_l, index_l, cfg13, device=dev)
+    al13 = Aligner(genome, index, cfg13, device=dev)
     bs, cap = cfg13.batch_reads, al13.rescue_fold_cap
     t13k, err13 = kernel_against_plain(
         "phase 13", al13, al13._upload_reads(c2.codes[:bs], c2.ambig[:bs],
@@ -1190,23 +1270,22 @@ def main() -> int:
     print(f"phase 13: cpu and cuda agree on matrix.mtx, barcodes.tsv and "
           f"features.tsv ({len((work / 'p13_cpu' / 'barcodes.tsv').read_text().split())} "
           f"cells)")
+    done(13)
     # ---- phase 14: exactSNP on an aligned diploid sample ----------------
     t = time.time()
     snp_reads, snps = synthetic_snp_sample(
         genome, seed=args.seed + 9, region_len=int(args.snp_region_mb * 1_000_000))
-    fq14, fa14 = work / "snp.fq", work / "genome.fa"
+    fq14, fa14 = work / "snp.fq", fa
     write_fastq(str(fq14), snp_reads)
-    write_genome_fasta(str(fa14), genome)
     print(f"phase 14: set-up: {len(snp_reads)} reads over {len(snps)} planted SNPs "
           f"({sum(s[4] for s in snps)} heterozygous) in {args.snp_region_mb:g} Mb of "
-          f"{genome.names[0]}, the genome as FASTA ({time.time() - t:.1f}s)")
+          f"{genome.names[0]} ({time.time() - t:.1f}s); the genome's FASTA is "
+          f"phase 1's")
     bam14 = work / "snp.bam"
     argv = ["-t", "1", "-i", prefix, "-r", str(fq14), "-o", str(bam14),
             "--device", "cuda"]
-    probe.probe_hits.launches = 0
-    run14 = align_cli.run_align(align_cli.build_parser().parse_args(argv))
-    torch.cuda.synchronize()
-    launches["exactSNP align (phase 14)"] = probe.probe_hits.launches
+    run14, launches["exactSNP align (phase 14)"] = launched(
+        lambda: align_cli.run_align(align_cli.build_parser().parse_args(argv)))
     check(run14["total"] == len(snp_reads),
           f"phase 14: {run14['total']} reads aligned of {len(snp_reads)}")
     check(launches["exactSNP align (phase 14)"] > 0,
@@ -1276,13 +1355,14 @@ def main() -> int:
         print(f"phase 14: {tool} on the first {n14} reads' BAM "
               f"({time.time() - t:.2f}s): {err.strip() or '-'}; "
               f"{out_lines} lines written")
+    done(14)
 
     # ---- phase 15: the multi-device paths --------------------------------
     devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     meshes = [("cuda:0 x 4", [dev] * 4, (2, 2))]
     if len(devs) > 1:
         meshes.append(("cuda:0, cuda:1", devs[:2], (1, 2)))
-    al_cuda = Aligner(genome_l, index_l, cfg, device=dev)
+    al_cuda = Aligner(genome, index, cfg, device=dev)
     R15 = min(8192, len(reads))
     c15, a15, l15, _ = al_cuda._pad_batch(ReadBatch(
         list(reads.names[:R15]), reads.codes[:R15], reads.lengths[:R15],
@@ -1291,13 +1371,13 @@ def main() -> int:
     one_ev, one_wall = stage_ms(
         lambda: al_cuda._device_align(*al_cuda._upload_reads(c15, a15, l15)), 5)
     t = time.time()
-    shards = index_shard.split_index_shards(index, 2)
+    shards = index_shard.split_index_shards(index3, 2)
     t_split = time.time() - t
     t = time.time()
     bs15, cb15, sb15, sl15, bits15, sbits15 = index_shard.stack_shards(shards)
     t_stack = time.time() - t
     r15 = synthetic_reads(genome, 4096, seed=args.seed + 11)
-    vp15 = al_cuda.vote_params
+    vp15 = al_cuda.vote_params._replace(index_gap=index3.index_gap)
     up15 = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     fold = None
     for s_ in range(2):
@@ -1306,7 +1386,7 @@ def main() -> int:
                        bits15, vp15, sub_base=up15(sb15[s_].astype(np.int32)),
                        sub_lo=up15(sl15[s_].astype(np.int32)), sub_bits=sbits15)
         fold = v if fold is None else merge_vote_results(fold, v, vp15)
-    print(f"phase 15: set-up: phase 1's index of {index.n_items} entries split into 2 "
+    print(f"phase 15: set-up: phase 1's gapped index of {index3.n_items} entries split into 2 "
           f"position-range shards of {[sh.n_items for sh in shards]} entries, "
           f"bucket_bits {bits15}, sub_bits {sbits15} ({t_split:.1f}s), stacked "
           f"({t_stack:.1f}s)")
@@ -1315,7 +1395,7 @@ def main() -> int:
     c_one, s_one, _, ov_one = dc15.count(*secs15)
     n_lr15 = min(20, len(lr))
     lr15 = [lr.codes[i, :lr.lengths[i]] for i in range(n_lr15)]
-    al15 = Aligner(genome_l, index_l, sublong_cli.sublong_config(
+    al15 = Aligner(genome, index, sublong_cli.sublong_config(
         sublong_cli.build_parser().parse_args(["-i", prefix, "-r", "-", "-o", "-"])),
         device=dev)
     t = time.time()
@@ -1326,10 +1406,8 @@ def main() -> int:
     def counted(path, fn):
         # one checked pass of a mesh path, its launches counted from 0;
         # the timing repeats run outside
-        probe.probe_hits.launches = 0
-        out = fn()
-        torch.cuda.synchronize()
-        md_launches[path] = md_launches.get(path, 0) + probe.probe_hits.launches
+        out, n = launched(fn)
+        md_launches[path] = md_launches.get(path, 0) + n
         return out
 
     for label, mdevs, (nr, ni) in meshes:
@@ -1405,6 +1483,92 @@ def main() -> int:
           f"psum_stats, allgather_event_table, barrier, destroy "
           f"({time.time() - t:.2f}s); {launches['multi-device (phase 15)']} kernel "
           f"launches on the multi-device paths")
+    done(15)
+
+    # ---- phase 16: the default gapped index --------------------------
+    cfg16 = align_cli.config_from_args(align_cli.build_parser().parse_args(
+        ["-t", "1", "-i", prefix3, "-r", "-", "-o", "-"]))
+    cfg16j = align_cli.config_from_args(subjunc_cli.build_parser().parse_args(
+        ["-i", prefix3, "-r", "-", "-o", "-", "--allJunctions"]), subjunc=True)
+    al16 = Aligner(genome3, index3, cfg16, device=dev)
+    al16j = Aligner(genome3, index3, cfg16j, device=dev)
+    t16, err16 = kernel_against_plain(
+        "phase 16", al16, al16._upload_reads(reads.codes[:R], reads.ambig[:R],
+                                             reads.lengths[:R]),
+        al16.vote_params, smoke_shapes(al16, R, subjunc=False, tag="gap3-"))
+    timings.update(t16)
+    max_err = max(max_err, err16)
+    t16, err16 = kernel_against_plain(
+        "phase 16", al16j, al16j._upload_reads(sp.codes[:R], sp.ambig[:R],
+                                               sp.lengths[:R]),
+        al16j.vote_params,
+        smoke_shapes(al16j, R, subjunc=True, tag="gap3-subjunc-")[:1])
+    timings.update(t16)
+    max_err = max(max_err, err16)
+    torch.cuda.empty_cache()
+    # subread-align single-end through the CLI on phase 3's reads
+    sam16 = work / "gap3.sam"
+    argv = ["-t", "1", "-i", prefix3, "-r", str(fq), "-o", str(sam16),
+            "--device", "cuda"]
+    run, n_se = launched(lambda: align_cli.run_align(
+        align_cli.build_parser().parse_args(argv)))
+    m16 = single_end_metrics(sam16, len(reads))
+    check(m16["primary"] == len(reads) and m16["distinct"] == len(reads),
+          f"phase 16: {m16['primary']} primary records for {len(reads)} reads")
+    for k, lo in GAPPED_MIN.items():
+        check(m16[k] >= lo, f"phase 16: {k} {m16[k]:.4f} < {lo}")
+    check(n_se > 0, "phase 16: subread-align never launched the probe_hits kernel")
+    print(f"phase 16: subread-align on the gapped index, {len(reads)} reads, "
+          f"mapped fraction {m16['mapped']:.4f}, {m16['near_truth']:.4f} of "
+          f"them within 1200 bp of the truth, {n_se} kernel launches; "
+          f"{len(reads) / run['time_align']:.1f} reads/s over align_file "
+          f"({run['time_align']:.2f}s); index load {run['time_load']:.2f}s, "
+          f"upload {run['time_upload']:.2f}s")
+    # subjunc paired-end with --allJunctions through the CLI on phase 9's pairs
+    sam16p = work / "gap3_sjp.sam"
+    argv = ["-i", prefix3, "-r", str(f91), "-R", str(f92), "-o", str(sam16p),
+            "--allJunctions", "--device", "cuda"]
+    run, n_sj = launched(lambda: align_cli.run_align(
+        subjunc_cli.build_parser().parse_args(argv), subjunc=True))
+    m16p = subjunc_metrics(sam16p, spp_truth, n9)
+    m16p["fusions"] = fusion_share(str(sam16p) + ".breakpoints.vcf",
+                                   spp_truth["fusions"])
+    check(m16p["primary"] == n9 and m16p["distinct"] == n9,
+          f"phase 16: {m16p['primary']} primary records for {len(sp1)} pairs")
+    for k, lo in GAPPED_SUBJUNC_PE_MIN.items():
+        check(m16p[k] >= lo, f"phase 16: subjunc {k} {m16p[k]:.4f} < {lo}")
+    check(n_sj > 0, "phase 16: subjunc never launched the probe_hits kernel")
+    print(f"phase 16: subjunc --allJunctions on the gapped index, {len(sp1)} "
+          f"spliced pairs, mapped fraction {m16p['mapped']:.4f} of reads, "
+          f"proper-pair fraction {m16p['proper']:.4f}; "
+          f"{m16p['spliced_share']:.4f} of the {m16p['spliced']} mates across "
+          f"planted introns have them as N; .junction.bed {m16p['bed_rows']} "
+          f"rows, recall {m16p['recall']:.4f}, precision "
+          f"{m16p['precision']:.4f}; .breakpoints.vcf holds "
+          f"{m16p['fusions']:.4f} of the planted fusions; {n_sj} kernel "
+          f"launches; {n9 / run['time_align']:.1f} reads/s over align_file_pe "
+          f"({run['time_align']:.2f}s); index load {run['time_load']:.2f}s")
+    # the CPU against the card: phase 4's reads, phase 10's pairs
+    def run16(d):
+        al = al16 if d == "cuda" else Aligner(genome3, index3, cfg16, device=d)
+        al.align_file(str(fq4), str(work / f"p16_{d}.sam"))
+        return work / f"p16_{d}.sam"
+
+    def run16pe(d):
+        al = al16j if d == "cuda" else Aligner(genome3, index3, cfg16j, device=d)
+        al.align_file_pe(str(f101), str(f102), str(work / f"p16pe_{d}.sam"))
+        return work / f"p16pe_{d}.sam"
+
+    n_cmp = cpu_cuda_agree("phase 16", run16, n4) + cpu_cuda_agree(
+        "phase 16 subjunc --allJunctions", run16pe, n10p,
+        side=(".junction.bed", ".breakpoints.vcf", ".indel.vcf"))
+    check(n_cmp > 0, "phase 16: the card's runs never launched the probe_hits kernel")
+    launches["gapped-index (phase 16)"] = n_se + n_sj + n_cmp
+    print(f"phase 16: {launches['gapped-index (phase 16)']} kernel launches on "
+          f"the gapped index")
+    del al16, al16j
+    torch.cuda.empty_cache()
+    done(16)
     print(f"probe_hits launches per path: {json.dumps(launches)}")
     shutil.rmtree(work, ignore_errors=True)
 
@@ -1414,7 +1578,8 @@ def main() -> int:
                   "paired-end": launches["paired-end (phase 5)"],
                   "subjunc": launches["subjunc (phase 8)"],
                   "subjunc-pe": launches["subjunc-pe (phase 9)"]}
-    print(f"chip_smoke: phases 0-15 passed in {time.time() - t_start:.1f}s")
+    print(f"chip_smoke: phases 0-16 passed in {time.time() - t_start:.1f}s")
+    print(json.dumps({"phase_seconds": phase_seconds}))
     print(card)
     print(json.dumps({"kernels": [{
         "name": "probe_hits", "route": "cuda", "source": KERNEL_SOURCE,
@@ -1423,7 +1588,9 @@ def main() -> int:
                              "sublong": launches["sublong (phase 11)"],
                              "cellcounts": launches["cellCounts (phase 13)"],
                              "exactsnp-align": launches["exactSNP align (phase 14)"],
-                             "multi-device": launches["multi-device (phase 15)"]},
+                             "multi-device": launches["multi-device (phase 15)"],
+                             "gapped-index (phase 16)":
+                                 launches["gapped-index (phase 16)"]},
         "max_abs_err": max_err, "ms": ms_k, "plain_ms": ms_r,
         "device_ms": dev_k, "plain_device_ms": dev_r,
         "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,

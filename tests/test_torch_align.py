@@ -18,7 +18,7 @@ import torch
 
 from subread_tpu import dna
 from subread_tpu.align.pipeline import Aligner as JAligner
-from subread_tpu.index.build import build_hash_index, split_index_blocks
+from subread_tpu.index.build import build_hash_index
 from subread_tpu.io.fastq import batch_from_records
 from subread_tpu.utils.simulate import simulate_reads
 from subread_tpu_torch.align.pipeline import Aligner
@@ -96,19 +96,10 @@ def assert_same_dict(t, j):
         np.testing.assert_array_equal(t[k], j[k], err_msg=k)
 
 
-@pytest.mark.parametrize("case", ["full", "multi_best"])
-def test_collect_batch_dict_matches_jax(genome, index, case, monkeypatch):
-    from dataclasses import replace
-
-    cfg = replace(cli_config(), batch_reads=512)
-    idx = index
-    if case == "gap3":
-        idx = build_hash_index(genome, index_gap=3)
-    elif case == "blocks":
-        idx = split_index_blocks(index, memory_mb=1)
-        assert len(idx) == 2
-    elif case == "multi_best":
-        cfg = replace(cfg, multi_best=3, report_multi_mapping=True)
+def collect_matches_jax(genome, idx, cfg, monkeypatch):
+    """align_batch on the port and on the JAX package with index idx and
+    config cfg: the same dict, with reads saturated in the main pass.
+    Returns the port's dict and what the spies saw."""
     # 1024 - 14 planted reads: the 512 exact reads fill the last sub-batch
     batch = reads_for(genome, 1010, seed=11)
     al = Aligner(genome, idx, cfg, device="cpu")
@@ -139,6 +130,20 @@ def test_collect_batch_dict_matches_jax(genome, index, case, monkeypatch):
     assert_same_dict(t, j)
     assert seen["fold"] > 0        # reads saturated in the main pass
     assert "probe_kv" in t
+    return t, seen
+
+
+def collect_config(**kw):
+    from dataclasses import replace
+
+    return replace(cli_config(), batch_reads=512, **kw)
+
+
+@pytest.mark.parametrize("case", ["full", "multi_best"])
+def test_collect_batch_dict_matches_jax(genome, index, case, monkeypatch):
+    cfg = (collect_config(multi_best=3, report_multi_mapping=True)
+           if case == "multi_best" else collect_config())
+    t, seen = collect_matches_jax(genome, index, cfg, monkeypatch)
     if case == "full":
         assert seen["host"] > 0    # and some still after the device tiers
         assert seen.get("escalated")   # some needing a window above 40

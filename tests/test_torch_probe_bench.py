@@ -1,7 +1,8 @@
 """subread_tpu_torch.probe_bench on the CPU: the bytes probe_hits must move,
 counted probe by probe with scalar arithmetic, against the vectorised count
 that chip_smoke.py turns into the kernel's bound; and the smoke's shapes
-and inputs as the vote builds them."""
+and inputs as the vote builds them.  Each case runs on a full index and on
+a gapped one (index_gap=3)."""
 
 import types
 
@@ -22,9 +23,15 @@ from test_torch_probe_gpu import GENOME, make_probes
 
 
 @pytest.fixture(scope="module")
-def setup():
-    genome = synthetic_genome(**GENOME)
-    index = build_hash_index(genome, index_gap=1)
+def genome():
+    return synthetic_genome(**GENOME)
+
+
+@pytest.fixture(scope="module", params=[1, 3], ids=["gap1", "gap3"])
+def setup(genome, request):
+    """The full index and the gapped one (index_gap=3, subread-buildindex's
+    default), each with its own bucket sizes and sub-bucket directory."""
+    index = build_hash_index(genome, index_gap=request.param)
     blk = to_device(index, genome, torch.device("cpu")).blocks[0]
     return genome, index, blk
 
@@ -94,7 +101,7 @@ def test_probe_hits_bytes_counts_each_probe(setup, directory, H):
 
 def test_smoke_shapes_and_inputs(setup):
     genome, index, blk = setup
-    vp = VoteParams()
+    vp = VoteParams(index_gap=index.index_gap)
     al = types.SimpleNamespace(vote_params=vp, rescue_hits=96,
                                dev_index=types.SimpleNamespace(blocks=[blk]))
     reads = synthetic_reads(genome, 600, seed=2)

@@ -8,6 +8,9 @@ two-intron chain and of a junction whose reads mostly have a 15-base flank:
     saturation rescue exercised;
   * the SAM, .junction.bed, .indel.vcf and .breakpoints.vcf of align_file
     and align_file_pe, with --allJunctions and with -a (a GTF written here);
+  * the case "gap3": the dicts and align_file's outputs with
+    --allJunctions on a gapped index (index_gap=3, subread-buildindex's
+    default) of the same genome;
   * `python -m subread_tpu_torch.tools.subjunc --device cpu` and
     `python -m subread_tpu_torch.tools.align --sv --device cpu`.
 
@@ -163,16 +166,27 @@ def config(*extra, subjunc=True):
 
 @pytest.fixture(scope="module")
 def aligners(genome, index):
-    """One port and one JAX aligner per configuration, built once."""
-    out = {}
+    """One port and one JAX aligner per configuration, built once; gap=3
+    puts them on the gapped index, built on first use."""
+    out, indexes = {}, {1: index}
 
-    def get(name, *extra, subjunc=True):
+    def get(name, *extra, subjunc=True, gap=1):
         if name not in out:
+            if gap not in indexes:
+                indexes[gap] = build_hash_index(genome, index_gap=gap)
             cfg = config(*extra, subjunc=subjunc)
-            out[name] = (Aligner(genome, index, cfg, device="cpu"),
-                         JAligner(genome, index, cfg))
+            out[name] = (Aligner(genome, indexes[gap], cfg, device="cpu"),
+                         JAligner(genome, indexes[gap], cfg))
         return out[name]
     return get
+
+
+def case_aligners(aligners, case):
+    """subjunc's defaults ("subjunc"), --allJunctions ("allJunctions"), or
+    --allJunctions on the gapped index ("gap3")."""
+    if case == "gap3":
+        return aligners(case, "--allJunctions", gap=3)
+    return aligners(case, *(["--allJunctions"] if case != "subjunc" else []))
 
 
 def assert_same_dict(t, j):
@@ -194,9 +208,9 @@ def records(path):
         return [line.split("\t") for line in f if not line.startswith("@")]
 
 
-@pytest.mark.parametrize("case", ["subjunc", "allJunctions"])
+@pytest.mark.parametrize("case", ["subjunc", "allJunctions", "gap3"])
 def test_collect_batch_dict_matches_jax(data, aligners, case):
-    al, jal = aligners(case, *(["--allJunctions"] if case != "subjunc" else []))
+    al, jal = case_aligners(aligners, case)
     seen = {}
     fold, host = al._rescue_fold, al._rescue_saturated
     al._rescue_fold = lambda c, a, l, res, ul: (
@@ -211,28 +225,28 @@ def test_collect_batch_dict_matches_jax(data, aligners, case):
     assert_same_dict(t, j)
     assert seen["fold"] > 0 and seen["host"] > 0
     assert t["junc"].sum() > 200 and t["seed_ok"].any() and t["alt2_ok"].any()
-    assert ("vk_pos" in t and "best_k" in t) == (case == "allJunctions")
+    assert ("vk_pos" in t and "best_k" in t) == (case != "subjunc")
 
 
-@pytest.mark.parametrize("case", ["subjunc", "allJunctions"])
+@pytest.mark.parametrize("case", ["subjunc", "allJunctions", "gap3"])
 def test_collect_batch_pe_dicts_match_jax(data, aligners, case):
-    al, jal = aligners(case, *(["--allJunctions"] if case != "subjunc" else []))
+    al, jal = case_aligners(aligners, case)
     t = al.align_batch_pe(*data["pe"])
     j = jal.align_batch_pe(*data["pe"])
     for m in (0, 1):
         assert_same_dict(t[m], j[m])
         assert t[m]["junc"].sum() > 100
-        assert ("vk_pos" in t[m] and "best_k" in t[m]) == (case == "allJunctions")
+        assert ("vk_pos" in t[m] and "best_k" in t[m]) == (case != "subjunc")
 
 
-@pytest.mark.parametrize("case", ["allJunctions", "annotation"])
+@pytest.mark.parametrize("case", ["allJunctions", "annotation", "gap3"])
 def test_align_file_outputs_match_jax(data, aligners, case):
     """Single-end SAM, .junction.bed, .indel.vcf (and .breakpoints.vcf);
     the chain read gets its two-intron CIGAR and the 15-base-flank reads
     their junction through the event table, as the JAX package gives."""
     d = data["dir"]
-    if case == "allJunctions":
-        al, jal = aligners(case, "--allJunctions")
+    if case != "annotation":
+        al, jal = case_aligners(aligners, case)
     else:
         al, jal = aligners("subjunc")
         ann = align_cli.load_annotated_junctions(
@@ -247,14 +261,14 @@ def test_align_file_outputs_match_jax(data, aligners, case):
         for a in (al, jal):
             a.__dict__.pop("annot_junctions", None)
     same_outputs(str(d / f"t_{case}.sam"), str(d / f"j_{case}.sam"),
-                 case == "allJunctions")
+                 case != "annotation")
     got = {r[0]: r[5] for r in records(d / f"t_{case}.sam")}
     assert got["multi"] == "10M100N80M100N20M"
     assert sum("N" in got[f"weak{i}"] for i in range(20)) >= 15
     assert sum("N" in c for c in got.values()) > 300
     bed = (d / f"t_{case}.sam.junction.bed").read_text().splitlines()[1:]
     assert len(bed) > 20 and max(int(r.split("\t")[4]) for r in bed) >= 30
-    if case == "allJunctions":
+    if case != "annotation":
         vcf = (d / f"t_{case}.sam.breakpoints.vcf").read_text()
         assert "SVTYPE=BND" in vcf
 
