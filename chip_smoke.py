@@ -330,10 +330,6 @@ def steps_line(secs: dict) -> str:
     return ", ".join(f"{n} {t:.2f}s" for n, t in secs.items())
 
 
-JUNCTION_STEPS = ("rescue_with_events", "_junction_rescue_step",
-                  "chain_clipped_junctions")
-
-
 def cigar_junctions(contig: str, pos1: int, cigar: str) -> set:
     """(contig, left_edge0, right_edge0) of each N of a CIGAR placed at the
     1-based pos1: the 0-based last base before the intron and first after."""
@@ -745,9 +741,7 @@ def main() -> int:
           f"{m3['near_truth']:.4f} of them within 1200 bp of the truth, "
           f"{launches['single-end (phase 3)']} kernel launches; "
           f"{rps:.1f} reads/s over align_file "
-          f"({run['time_align']:.2f}s: device+collect+host indel "
-          f"{run['time_voting']:.2f}s, read+emit {run['time_io']:.2f}s); "
-          f"index load {run['time_load']:.2f}s, upload {run['time_upload']:.2f}s")
+          f"({run['time_align']:.2f}s); host seconds in {steps_line(run['spans'])}")
     done(3)
 
     # ---- phase 4: CUDA against CPU ------------------------------------
@@ -800,8 +794,7 @@ def main() -> int:
           f"mapped mates within 1200 bp of the truth, "
           f"{launches['paired-end (phase 5)']} kernel launches; "
           f"{rps_pe:.1f} reads/s ({rps_pe / 2:.1f} pairs/s) over align_file_pe "
-          f"({run['time_align']:.2f}s: device+collect+host indel "
-          f"{run['time_voting']:.2f}s, read+emit {run['time_io']:.2f}s)")
+          f"({run['time_align']:.2f}s; host seconds in {steps_line(run['spans'])})")
     # the paired selection alone on one sub-batch of the main pass
     bs = cfg.batch_reads
     p1, p2 = pairs
@@ -885,11 +878,8 @@ def main() -> int:
           f"{len(sp_truth['fusions'])} chimeras ({time.time() - t:.1f}s)")
     sam8 = work / "sj.sam"
     argv = ["-i", prefix, "-r", str(fq8), "-o", str(sam8), "--device", "cuda"]
-    steps = [(Aligner, n, n) for n in
-             ("submit_batch", "collect_batch", *JUNCTION_STEPS, "_emit_sam")]
-    with host_seconds(steps) as secs8:
-        run, launches["subjunc (phase 8)"] = launched(lambda: align_cli.run_align(
-            subjunc_cli.build_parser().parse_args(argv), subjunc=True))
+    run, launches["subjunc (phase 8)"] = launched(lambda: align_cli.run_align(
+        subjunc_cli.build_parser().parse_args(argv), subjunc=True))
     m8 = subjunc_metrics(sam8, sp_truth, len(sp))
     check(m8["primary"] == len(sp) and m8["distinct"] == len(sp),
           f"phase 8: {m8['primary']} primary records for {len(sp)} reads")
@@ -904,9 +894,8 @@ def main() -> int:
           f"precision {m8['precision']:.4f}; "
           f"{launches['subjunc (phase 8)']} kernel launches; "
           f"{len(sp) / run['time_align']:.1f} reads/s over align_file "
-          f"({run['time_align']:.2f}s: collect+host junction steps "
-          f"{run['time_voting']:.2f}s, read+fusions+emit "
-          f"{run['time_io']:.2f}s); host seconds in {steps_line(secs8)}")
+          f"({run['time_align']:.2f}s; host seconds in "
+          f"{steps_line(run['spans'])})")
 
     # the kernel against plain at subjunc's shapes, and the junction
     # stages, on one sub-batch, on an aligner with the run's options
@@ -957,12 +946,8 @@ def main() -> int:
     sam9 = work / "sjp.sam"
     argv = ["-i", prefix, "-r", str(f91), "-R", str(f92), "-o", str(sam9),
             "--allJunctions", "--device", "cuda"]
-    steps = [(Aligner, n, n) for n in
-             ("submit_batch_pe", "collect_batch_pe", *JUNCTION_STEPS,
-              "_emit_sam_pe")]
-    with host_seconds(steps) as secs9:
-        run, launches["subjunc-pe (phase 9)"] = launched(lambda: align_cli.run_align(
-            subjunc_cli.build_parser().parse_args(argv), subjunc=True))
+    run, launches["subjunc-pe (phase 9)"] = launched(lambda: align_cli.run_align(
+        subjunc_cli.build_parser().parse_args(argv), subjunc=True))
     n9 = 2 * len(sp1)
     m9 = subjunc_metrics(sam9, spp_truth, n9)
     m9["fusions"] = fusion_share(str(sam9) + ".breakpoints.vcf",
@@ -982,9 +967,8 @@ def main() -> int:
           f"{m9['fusions']:.4f} of {len(spp_truth['fusions'])} planted fusions; "
           f"{launches['subjunc-pe (phase 9)']} kernel launches; "
           f"{n9 / run['time_align']:.1f} reads/s over align_file_pe "
-          f"({run['time_align']:.2f}s: collect {run['time_voting']:.2f}s, "
-          f"read+host junction steps+fusions+emit {run['time_io']:.2f}s); "
-          f"host seconds in {steps_line(secs9)}")
+          f"({run['time_align']:.2f}s; host seconds in "
+          f"{steps_line(run['spans'])})")
     done(9)
 
     # ---- phase 10: subjunc --allJunctions -a, CUDA against CPU ---------
@@ -1300,7 +1284,8 @@ def main() -> int:
     print(f"phase 14: {len(snp_reads)} reads, mapped {run14['mapped'] / run14['total']:.4f}, "
           f"{launches['exactSNP align (phase 14)']} kernel launches, "
           f"{len(snp_reads) / run14['time_align']:.1f} reads/s over align_file with BAM "
-          f"out ({run14['time_align']:.2f}s, read+emit {run14['time_io']:.2f}s); "
+          f"out ({run14['time_align']:.2f}s; host seconds in "
+          f"{steps_line(run14['spans'])}); "
           f"exactSNP over the whole BAM {t_snp:.2f}s (native pileup "
           f"{native.get_lib() is not None}): {m14['called']} SNVs called, recall "
           f"homozygous {m14['hom_recall']:.4f}, heterozygous {m14['het_recall']:.4f}, "

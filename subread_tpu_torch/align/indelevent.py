@@ -29,6 +29,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import timing
+
 SENTINEL = np.uint32(0xFFFFFFFF)
 
 # movement codes (core-indel.c:4575)
@@ -474,6 +476,7 @@ def ref_stats_batch_np(mm, read_len, split, indel, cs, ce, show_clip=True):
     return head[:, 0], tail[:, 0], mism, match
 
 
+@timing.span("indel")
 def propose_and_apply(genome, batch, res, cfg, anchor_mism_limit=3,
                       index_gap: int = 1):
     """Event-table indel placement for one batch.
@@ -942,6 +945,7 @@ def rescue_clipped_with_events(genome, batch, res, events,
     return n_res
 
 
+@timing.span("rescue")
 def rescue_unmapped_mates(genome, b1, b2, r1, r2, cfg):
     """PE mate-window rescue: an unmapped end whose mate maps gets a
     direct mismatch scan over the mate's fragment window (both strands,

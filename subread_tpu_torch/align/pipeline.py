@@ -21,13 +21,13 @@ native).
 
 from __future__ import annotations
 
-import time
+import functools
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from .. import dna
+from .. import dna, timing
 from ..config import AlignConfig
 from ..device import SENTINEL, resolve_device, u32, upload
 from ..index.device import to_device
@@ -116,9 +116,6 @@ class AlignSummary:
     multi: int = 0
     unmapped: int = 0
     indels: int = 0
-    time_voting: float = 0.0
-    time_realign: float = 0.0
-    time_io: float = 0.0
 
     def as_dict(self):
         return self.__dict__.copy()
@@ -325,6 +322,27 @@ def applied_mismatch_limit(max_mismatches: int, lens: torch.Tensor) -> torch.Ten
     return torch.where(L > 160, scaled, max_mismatches).to(torch.int32)
 
 
+def _emit_span(emit):
+    """An emit method (self, writer, ...) in the emit span of one chunk's
+    records.  While the profiler records, a BAM writer's packing time
+    summed over the records is counted as bam.pack_ns."""
+
+    @functools.wraps(emit)
+    def spanned(self, writer, *args, **kw):
+        bam = getattr(writer, "bam", None)
+        with timing.span("emit"):
+            if bam is None or not timing.recording():
+                return emit(self, writer, *args, **kw)
+            bam.pack_ns = 0
+            try:
+                return emit(self, writer, *args, **kw)
+            finally:
+                timing.count("bam.pack_ns", bam.pack_ns)
+                bam.pack_ns = None
+
+    return spanned
+
+
 def uniform_length(lens: np.ndarray) -> int | None:
     """The common read length when every (real) read shares it, else None
     — a static hint that turns reverse-complementing into a static flip."""
@@ -390,7 +408,8 @@ class Aligner:
                 self.rescue_vote_params._replace(compact=1024),
                 max(self.rescue_fold_cap // 8, 256),
             ))
-        self.dev_index = to_device(self.blocks, genome, self.device)
+        with timing.span("index.upload"):
+            self.dev_index = to_device(self.blocks, genome, self.device)
 
     # --- device step -------------------------------------------------------
 
@@ -1105,6 +1124,7 @@ class Aligner:
     def align_batch(self, batch: ReadBatch) -> dict[str, np.ndarray]:
         return self.collect_batch(self.submit_batch(batch))
 
+    @timing.span("submit")
     def submit_batch(self, batch: ReadBatch):
         """Upload and queue every sub-batch of a chunk; nothing here waits
         for the device."""
@@ -1114,10 +1134,13 @@ class Aligner:
         pending = []
         for j in range(len(lens) // bs):
             sl = slice(j * bs, (j + 1) * bs)
-            dc, da, dl = self._upload_reads(codes[sl], ambig[sl], lens[sl])
-            pending.append(self._device_align(dc, da, dl, uniform_len=ul))
+            with timing.span("submit.upload"):
+                dc, da, dl = self._upload_reads(codes[sl], ambig[sl], lens[sl])
+            with timing.span("submit.launch"):
+                pending.append(self._device_align(dc, da, dl, uniform_len=ul))
         return pending, R, batch
 
+    @timing.span("collect")
     def collect_batch(self, state) -> dict[str, np.ndarray]:
         """Read a chunk's results back as the dict the JAX pipeline's
         collect_batch gives the host: the same keys and numpy dtypes; best_k
@@ -1155,6 +1178,7 @@ class Aligner:
             res = align(vp)
         return res
 
+    @timing.span("rescue")
     def _rescue_saturated(self, batch: ReadBatch, out: dict) -> None:
         """Re-align the reads still saturated after the device tiers through
         the uncut wide pass, doubling the cluster window (to 256) while the
@@ -1198,6 +1222,7 @@ class Aligner:
     def align_batch_pe(self, b1: ReadBatch, b2: ReadBatch):
         return self.collect_batch_pe(self.submit_batch_pe(b1, b2))
 
+    @timing.span("submit")
     def submit_batch_pe(self, b1: ReadBatch, b2: ReadBatch):
         """Upload and queue every sub-batch of a chunk of pairs; nothing
         here waits for the device."""
@@ -1208,11 +1233,14 @@ class Aligner:
         pending = []
         for j in range(len(l1) // bs):
             sl = slice(j * bs, (j + 1) * bs)
-            m1 = self._upload_reads(c1[sl], a1[sl], l1[sl])
-            m2 = self._upload_reads(c2[sl], a2[sl], l2[sl])
-            pending.append(self._device_align_pe(*m1, *m2, ul1=ul1, ul2=ul2))
+            with timing.span("submit.upload"):
+                m1 = self._upload_reads(c1[sl], a1[sl], l1[sl])
+                m2 = self._upload_reads(c2[sl], a2[sl], l2[sl])
+            with timing.span("submit.launch"):
+                pending.append(self._device_align_pe(*m1, *m2, ul1=ul1, ul2=ul2))
         return pending, R, b1, b2
 
+    @timing.span("collect")
     def collect_batch_pe(self, state):
         """Read a chunk's paired results back as the two dicts the JAX
         pipeline's collect_batch_pe gives the host: the same keys and numpy
@@ -1230,6 +1258,7 @@ class Aligner:
         self._rescue_saturated_pe(b1, b2, out1, out2)
         return out1, out2
 
+    @timing.span("rescue")
     def _rescue_saturated_pe(self, b1, b2, out1: dict, out2: dict) -> None:
         """Paired twin of _rescue_saturated: re-align the pairs where either
         end is still saturated, with the same window escalation, and
@@ -1283,6 +1312,7 @@ class Aligner:
     # are copies of the JAX package's (the module docstring says why); the
     # rescue's device step is _junction_rescue_step.
 
+    @timing.span("junction")
     def rescue_with_events(self, batch: ReadBatch, res: dict,
                            ev_left: np.ndarray, ev_right: np.ndarray) -> dict:
         """Scan-2 event-table sharing (explain_read, core-junction.c:2617):
@@ -1480,6 +1510,7 @@ class Aligner:
             ok = ok & ~np.asarray(res["multi"], bool)
         return ok
 
+    @timing.span("junction")
     def chain_clipped_junctions(self, batch: ReadBatch, res: dict,
                                 junctions: dict, events: dict | None = None,
                                 count_primary: bool = True,
@@ -1608,6 +1639,7 @@ class Aligner:
         out["cigar_override"] = overrides
         return out
 
+    @_emit_span
     def _emit_sam(
         self,
         writer: samio.SamWriter,
@@ -2188,6 +2220,7 @@ class Aligner:
                     indel_events[key] = (sup + 1, prev)
         return True
 
+    @_emit_span
     def _emit_sam_pe(self, writer, b1, b2, res1, res2, summary: AlignSummary,
                      indel_events: dict | None = None):
         if self._emit_sam_pe_native(writer, b1, b2, res1, res2, summary,
@@ -2318,18 +2351,17 @@ class Aligner:
                 raise ValueError("mate files out of sync")
             return b1, b2
 
+        chunk = 0
         try:
-            t0 = time.time()
+            timing.set_chunk(chunk)
             pair = read_pair()
-            t_read = time.time() - t0
             state = self.submit_batch_pe(*pair) if pair is not None else None
             while pair is not None:
                 # depth-1 chunk pipeline (see align_file)
-                t0 = time.time()
+                timing.set_chunk(chunk + 1)
                 nxt = read_pair()
-                t_read_next = time.time() - t0
                 nxt_state = self.submit_batch_pe(*nxt) if nxt is not None else None
-                t1 = time.time()
+                timing.set_chunk(chunk)
                 r1, r2 = self.collect_batch_pe(state)
                 if junctions is None:
                     # event-table indel placement per end (same shared-event
@@ -2387,7 +2419,6 @@ class Aligner:
                     rescue_unmapped_mates(
                         self.genome, pair[0], pair[1], r1, r2, self.cfg
                     )
-                t2 = time.time()
                 if junctions is not None:
                     # scan-2 event sharing + chaining, mirroring the SE
                     # path: table junctions (this chunk + earlier chunks +
@@ -2440,14 +2471,12 @@ class Aligner:
                         accumulate_breakpoints(breakpoints, pairs_f)
                 self._emit_sam_pe(writer, pair[0], pair[1], r1, r2, summary,
                                   indel_events)
-                t3 = time.time()
-                summary.time_io += t_read + (t3 - t2)
-                summary.time_voting += t2 - t1
-                pair, state, t_read = nxt, nxt_state, t_read_next
+                pair, state, chunk = nxt, nxt_state, chunk + 1
         finally:
             rd1.close()
             rd2.close()
             writer.close()
+            timing.set_chunk(-1)
         if junctions is not None:
             write_junction_bed(out_sam + ".junction.bed", junctions)
         if breakpoints is not None:
@@ -2478,20 +2507,19 @@ class Aligner:
         seed_pending: dict = {}
         indel_events: dict = {}
         breakpoints: dict | None = {} if self.cfg.all_junctions else None
+        chunk = 0
         try:
-            t0 = time.time()
+            timing.set_chunk(chunk)
             batch = reader.next_batch(chunk_reads, pad_to=self.cfg.pad_read_len)
-            t_read = time.time() - t0
             state = self.submit_batch(batch) if batch is not None else None
             while batch is not None:
                 # depth-1 chunk pipeline: read + submit chunk N+1 BEFORE
                 # collecting chunk N, so its device compute runs under this
                 # chunk's fetch + host postprocess + emit
-                t0 = time.time()
+                timing.set_chunk(chunk + 1)
                 nxt = reader.next_batch(chunk_reads, pad_to=self.cfg.pad_read_len)
-                t_read_next = time.time() - t0
                 nxt_state = self.submit_batch(nxt) if nxt is not None else None
-                t1 = time.time()
+                timing.set_chunk(chunk)
                 res = self.collect_batch(state)
                 if junctions is None and "probe_kv" in res:
                     # event-table indel placement: the reference derives
@@ -2575,7 +2603,6 @@ class Aligner:
                         batch, res, junctions, events=prelim,
                         mask=self._reported_mask(res),
                     )
-                t2 = time.time()
                 if breakpoints is not None and "vk_pos" in res:
                     from .fusion import accumulate_breakpoints, detect_fusion_pairs
 
@@ -2586,13 +2613,11 @@ class Aligner:
                     accumulate_breakpoints(breakpoints, pairs)
                 self._emit_sam(writer, batch, res, summary,
                                junctions=junctions, indel_events=indel_events)
-                t3 = time.time()
-                summary.time_io += t_read + (t3 - t2)
-                summary.time_voting += t2 - t1
-                batch, state, t_read = nxt, nxt_state, t_read_next
+                batch, state, chunk = nxt, nxt_state, chunk + 1
         finally:
             reader.close()
             writer.close()
+            timing.set_chunk(-1)
         if junctions is not None:
             write_junction_bed(out_sam + ".junction.bed", junctions)
         if breakpoints is not None:
@@ -2649,6 +2674,7 @@ def _calc_tlen_cigar(cigar: str, Ps: int, Pb: int, Lbig: int,
     return Pb - section_end + Lbig + Lsm
 
 
+@timing.span("indel")
 def refine_multi_indels(
     genome: Genome, batch: ReadBatch, res: dict, max_indel: int,
     vote_params: VoteParams, max_mismatches: int = 3, min_votes: int = 3,

@@ -12,10 +12,13 @@ demands it.
 from __future__ import annotations
 
 import struct
+import time
 import zlib
 from dataclasses import dataclass, field
 
 import numpy as np
+
+from .. import timing
 
 BGZF_EOF = bytes.fromhex(
     "1f8b08040000000000ff0600424302001b0003000000000000000000"
@@ -258,7 +261,12 @@ class BamReader:
 
 
 class BamWriter:
-    """Minimal BAM writer: header + records, BGZF-compressed."""
+    """Minimal BAM writer: header + records, BGZF-compressed.  While
+    pack_ns is an int, add_sam_fields adds to it the nanoseconds it spends
+    packing records, a flush excluded."""
+
+    FLUSH_BYTES = 1 << 22   # records buffered before a deflate
+    pack_ns: int | None = None
 
     def __init__(self, path: str, ref_names: list[str], ref_lengths: list[int],
                  header_text: str = ""):
@@ -275,6 +283,7 @@ class BamWriter:
         self._buf = bytearray(hdr)
 
     def add_sam_fields(self, fields: list[str]) -> None:
+        t0 = time.perf_counter_ns() if self.pack_ns is not None else 0
         qname = fields[0].encode() + b"\x00"
         flag = int(fields[1])
         ref_id = self._ref_idx.get(fields[2], -1)
@@ -329,12 +338,16 @@ class BamWriter:
         rec += b"".join(struct.pack("<I", c) for c in cigar_ops)
         rec += bytes(seq_nib) + qual + tags
         self._buf += struct.pack("<i", len(rec)) + rec
-        if len(self._buf) > (1 << 22):
+        if t0:
+            self.pack_ns += time.perf_counter_ns() - t0
+        if len(self._buf) > self.FLUSH_BYTES:
             self._flush()
 
+    @timing.span("bgzf.deflate")
     def _flush(self):
         for block in bgzf_compress_chunks(bytes(self._buf)):
             self._f.write(block)
+        timing.count("bgzf.bytes_in", len(self._buf))
         self._buf = bytearray()
 
     def close(self):

@@ -21,7 +21,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from .. import dna
+from .. import dna, timing
 
 
 @dataclass
@@ -87,6 +87,7 @@ class FastqReader:
         self._f = _open_maybe_gz(path)
         self._transform = transform
 
+    @timing.span("fastq.read")
     def next_batch(self, max_reads: int, pad_to: int | None = None) -> ReadBatch | None:
         names: list[str] = []
         seqs: list[bytes] = []

@@ -115,8 +115,8 @@ class SamWriter:
 
 
 class BamRecordWriter:
-    """SamWriter-compatible facade over io.bam.BamWriter (the reference's
-    default output is BAM, sambam-file.h:110-149)."""
+    """SamWriter-compatible facade over io.bam.BamWriter (`bam`; the
+    reference's default output is BAM, sambam-file.h:110-149)."""
 
     def __init__(self, path, contig_names, contig_lengths, rg_id=None,
                  rg_extra=None, program="subread_tpu", version="0.1.0",
@@ -133,7 +133,7 @@ class BamRecordWriter:
             extra = ("\t" + "\t".join(rg_extra)) if rg_extra else ""
             header.append(f"@RG\tID:{rg_id}{extra}")
         header.append(f"@PG\tID:{program}\tPN:{program}\tVN:{version}")
-        self._w = BamWriter(
+        self.bam = BamWriter(
             path, list(contig_names), [int(x) for x in contig_lengths],
             header_text="\n".join(header) + "\n",
         )
@@ -143,13 +143,13 @@ class BamRecordWriter:
     def write(self, rec: "SamRecord") -> None:
         if self._rg_id:
             rec.tags.append(f"RG:Z:{self._rg_id}")
-        self._w.add_sam_fields(rec.to_line().split("\t"))
+        self.bam.add_sam_fields(rec.to_line().split("\t"))
 
     def write_line(self, line: str) -> None:
-        self._w.add_sam_fields(line.split("\t"))
+        self.bam.add_sam_fields(line.split("\t"))
 
     def close(self) -> None:
-        self._w.close()
+        self.bam.close()
         from ..utils.cleanup import unregister
 
         unregister(self.path)

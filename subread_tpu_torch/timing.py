@@ -1,19 +1,117 @@
-"""Timing helpers shared by the port's scripts on the card (chip_smoke.py,
-profile_torch_pe.py, profile_probe_hits.py): a device stage timed by CUDA
-events and by the host clock on the same calls, the card's own time per
-call of a function with a cold L2 and the host's launch time taken out,
-the host seconds spent in chosen functions while a run goes on, and the
-vote of one sub-batch on the first index block."""
+"""Timing in the port: the span and counter recorder that the align
+pipeline's host layers report to, and the helpers the port's scripts on
+the card share (chip_smoke.py, profile_torch_pe.py, profile_probe_hits.py):
+a device stage timed by CUDA events and by the host clock on the same
+calls, the card's own time per call of a function with a cold L2 and the
+host's launch time taken out, the host seconds spent in chosen functions
+while a run goes on, and the vote of one sub-batch on the first index
+block.
+
+The recorder keeps every span and counter in memory while a torch.profiler
+session records, and nothing else then: a span's times are on the wall
+clock (`time.time_ns`) that the profiler's host and device events use, so
+the spans lie on the profiler's timeline.  Outside a profiler session a
+span only adds its seconds to a per-name total (`totals`), which the CLI
+prints.  No span waits for the device: one around a launch times the
+launch.  Spans carry the index of the input chunk whose work they do (-1
+outside the chunks, as in set-up), set by `set_chunk`.  The recorder is
+one per process and not thread-safe: the pipeline's host steps run on one
+thread.
+"""
 
 from __future__ import annotations
 
 import contextlib
 import statistics
 import time
+from typing import NamedTuple
 
 import torch
 
-from .ops.vote import vote_batch
+
+class Span(NamedTuple):
+    name: str
+    start_ns: int
+    end_ns: int     # -1 while the span is open
+    parent: int     # index in spans() of the enclosing span; -1 for none
+    chunk: int
+
+
+class Counter(NamedTuple):
+    name: str
+    chunk: int
+    value: int
+
+
+_spans: list[Span] = []
+_counters: list[Counter] = []
+_totals: dict[str, int] = {}
+_open: list[int] = []   # indices of the open recorded spans, innermost last
+_chunk = -1
+
+
+def recording() -> bool:
+    """Whether a torch.profiler session records, and spans with it."""
+    return torch.autograd._profiler_enabled()
+
+
+def set_chunk(chunk: int) -> None:
+    """The input chunk the spans and counters that follow belong to."""
+    global _chunk
+    _chunk = chunk
+
+
+@contextlib.contextmanager
+def span(name: str):
+    """A span around the block (or, as a decorator, the call)."""
+    if not recording():
+        t = time.perf_counter_ns()
+        try:
+            yield
+        finally:
+            _totals[name] = _totals.get(name, 0) + time.perf_counter_ns() - t
+        return
+    i, t = len(_spans), time.time_ns()
+    _spans.append(Span(name, t, -1, _open[-1] if _open else -1, _chunk))
+    _open.append(i)
+    try:
+        yield
+    finally:
+        end = time.time_ns()
+        _open.pop()
+        _spans[i] = _spans[i]._replace(end_ns=end)
+        _totals[name] = _totals.get(name, 0) + end - t
+
+
+def count(name: str, value: int) -> None:
+    """Add value to the named counter of the current chunk, while the
+    profiler records."""
+    if recording():
+        _counters.append(Counter(name, _chunk, int(value)))
+
+
+def spans() -> list[Span]:
+    """The spans recorded so far, in the order they opened; a span's
+    parent indexes this list."""
+    return list(_spans)
+
+
+def counters() -> list[Counter]:
+    return list(_counters)
+
+
+def totals() -> dict[str, float]:
+    """Seconds in each span name since the process started (or clear())."""
+    return {k: v / 1e9 for k, v in _totals.items()}
+
+
+def clear() -> None:
+    """Forget every span, counter and total."""
+    if _open:
+        raise RuntimeError("clear() inside an open span")
+    _spans.clear()
+    _counters.clear()
+    _totals.clear()
 
 
 def stage_ms(fn, reps: int = 20, cuda: bool = True) -> tuple[float, float]:
@@ -118,6 +216,8 @@ def host_seconds(steps, sync=None):
 def first_block_vote(al, codes, ambig, lens, vp, static_len=None):
     """The vote of one uploaded sub-batch on the Aligner's first index
     block with VoteParams vp, as Aligner._device_align calls it."""
+    from .ops.vote import vote_batch
+
     blk = al.dev_index.blocks[0]
     return vote_batch(codes, ambig, lens, blk.bucket_start, blk.comb,
                       blk.bucket_bits, vp, static_len=static_len,

@@ -17,6 +17,7 @@ import argparse
 import sys
 import time
 
+from .. import timing
 
 def option_parser(prog="subread_tpu_torch-align", subjunc=False):
     """The option table of subread_tpu/tools/align.py::build_parser, copied:
@@ -153,6 +154,7 @@ def main(argv=None) -> int:
     return 0
 
 
+@timing.span("index.load")
 def load_index_any(prefix: str):
     """Load a native (.genome.npz/.hash.npz) or reference-built
     ({prefix}.00.b.tab/.array/.reads) index."""
@@ -291,11 +293,13 @@ def load_annotated_junctions(args) -> dict:
 
 def run_align(args, subjunc: bool = False) -> dict:
     """Align as the options say (subjunc's defaults when `subjunc`);
-    returns the AlignSummary's fields plus the wall time of each step
-    (index load, upload to the device, align_file)."""
+    returns the AlignSummary's fields, the wall time of each step (index
+    load, upload to the device, align_file) and, under "spans", the host
+    seconds of each span of the run."""
     from ..align.pipeline import Aligner
     from ..device import resolve_device
 
+    before = timing.totals()
     t0 = time.time()
     device = resolve_device(args.device)
     cfg = config_from_args(args, subjunc)
@@ -321,15 +325,17 @@ def run_align(args, subjunc: bool = False) -> dict:
         )
     t3 = time.time()
     d = summary.as_dict()
-    d.update(time_load=t1 - t0, time_upload=t2 - t1, time_align=t3 - t2)
+    d.update(time_load=t1 - t0, time_upload=t2 - t1, time_align=t3 - t2,
+             spans={k: v - before.get(k, 0.0)
+                    for k, v in timing.totals().items()
+                    if v > before.get(k, 0.0)})
     print(
         f"// Mapped: {d['mapped']}/{d['total']} "
         f"({100.0*d['mapped']/max(d['total'],1):.1f}%), "
         f"unique {d['unique']}, multi {d['multi']}, "
-        f"indel-CIGARs {d['indels']}; {t3 - t0:.1f}s total on {device} "
-        f"(index load {t1 - t0:.1f}s, upload {t2 - t1:.1f}s, align "
-        f"{t3 - t2:.1f}s: device+host {d['time_voting']:.1f}s, "
-        f"io {d['time_io']:.1f}s)",
+        f"indel-CIGARs {d['indels']}; {t3 - t0:.1f}s total on {device}, "
+        f"align {t3 - t2:.1f}s; host seconds in "
+        + ", ".join(f"{k} {v:.1f}s" for k, v in d["spans"].items()),
         file=sys.stderr,
     )
     return d

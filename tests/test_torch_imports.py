@@ -14,7 +14,7 @@ REPO = Path(__file__).resolve().parent.parent
 FILES = sorted(
     str(p.relative_to(REPO)) for p in (REPO / "subread_tpu_torch").rglob("*.py")
 ) + ["chip_smoke.py", "profile_torch_pe.py", "profile_probe_hits.py",
-     "tests/test_torch_probe_gpu.py"]
+     "tests/test_torch_probe_gpu.py", "tests/test_torch_trace_gpu.py"]
 
 
 def forbidden_imports(source: str) -> list[str]:
