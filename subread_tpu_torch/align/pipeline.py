@@ -22,6 +22,7 @@ native).
 from __future__ import annotations
 
 import functools
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -33,6 +34,7 @@ from ..device import SENTINEL, resolve_device, u32, upload
 from ..index.device import to_device
 from ..index.genome import Genome
 from ..io import sam as samio
+from ..io.bam import cigar_ops
 from ..io.fastq import FastqReader, ReadBatch
 from ..ops.extend import oriented_read, place_single_indel, ref_clip_stats
 from ..ops.junction import (
@@ -325,7 +327,9 @@ def applied_mismatch_limit(max_mismatches: int, lens: torch.Tensor) -> torch.Ten
 def _emit_span(emit):
     """An emit method (self, writer, ...) in the emit span of one chunk's
     records.  While the profiler records, a BAM writer's packing time
-    summed over the records is counted as bam.pack_ns."""
+    summed over the records is counted as bam.pack_ns, and the records
+    packed by the native encoder and by BamWriter.add_sam_fields as
+    bam.records_native and bam.records_python."""
 
     @functools.wraps(emit)
     def spanned(self, writer, *args, **kw):
@@ -333,14 +337,33 @@ def _emit_span(emit):
         with timing.span("emit"):
             if bam is None or not timing.recording():
                 return emit(self, writer, *args, **kw)
-            bam.pack_ns = 0
+            bam.pack_ns = bam.records_native = bam.records_python = 0
             try:
                 return emit(self, writer, *args, **kw)
             finally:
                 timing.count("bam.pack_ns", bam.pack_ns)
+                timing.count("bam.records_native", bam.records_native)
+                timing.count("bam.records_python", bam.records_python)
                 bam.pack_ns = None
 
     return spanned
+
+
+def _add_indel_event(indel_events: dict | None, batch, res: dict, i: int,
+                     iv: int, ci, co) -> None:
+    """Count row i's indel of iv bases (insertion < 0) at contig ci, 0-based
+    offset co, in indel_events: (contig, last base before the indel, iv) ->
+    (reads, inserted bases of the first).  Rows whose events the
+    event-placement pass recorded are left out."""
+    if indel_events is None or i in (res.get("_events_done") or ()):
+        return
+    sp = int(res["split"][i])
+    codes = batch.codes[i, : int(batch.lengths[i])]
+    seq = dna.decode(dna.revcomp(codes) if int(res["strand"][i]) == 1 else codes)
+    ins_seq = seq[sp : sp - iv] if iv < 0 else ""
+    key = (int(ci), int(co) + sp - 1, iv)
+    sup, prev = indel_events.get(key, (0, ins_seq))
+    indel_events[key] = (sup + 1, prev)
 
 
 def uniform_length(lens: np.ndarray) -> int | None:
@@ -1649,14 +1672,9 @@ class Aligner:
         junctions: dict | None = None,
         indel_events: dict | None = None,
     ):
-        # fast path: native C++ record formatter (subread_tpu/native)
-        if (
-            junctions is None
-            and self.cfg.rg_id is None
-            and not self.cfg.ignore_unmapped
-            and self.cfg.min_mapped_length <= 0
-            and isinstance(writer, samio.SamWriter)
-            and self._emit_sam_native(writer, batch, res, summary, indel_events)
+        # fast path: the native record formatter or BAM encoder
+        if junctions is None and self._emit_se_native(
+            writer, batch, res, summary, indel_events
         ):
             return
         self._emit_sam_python(writer, batch, res, summary, junctions, indel_events)
@@ -1712,102 +1730,172 @@ class Aligner:
             writer.write(r)
         return len(recs) > 0
 
-    def _emit_sam_native(self, writer, batch, res, summary, indel_events) -> bool:
-        from .. import native
-
+    def _se_columns(self, batch, res, drop_multi: bool) -> tuple[dict, np.ndarray]:
+        """One single-end chunk's record columns for _write_records, and
+        the multi-mapping reads among the mapped ones; drop_multi reports
+        multi-mapping reads unmapped."""
         g = self.genome
         n = len(batch)
-        lin = res["pos"].astype(np.int64)
-        cidx, coff = g.linear_to_chro(lin)
-        mapped = (
-            np.asarray(res["mapped"], bool)
-            & (coff >= 0)
-            & (coff < g.lengths[cidx])
-        )
-        strand = np.asarray(res["strand"], np.int32)
-        flags = np.where(mapped, np.where(strand == 1, 16, 0), 4).astype(np.int32)
+        cidx, coff = g.linear_to_chro(res["pos"].astype(np.int64))
+        mapped = (np.asarray(res["mapped"], bool)
+                  & (coff >= 0) & (coff < g.lengths[cidx]))
+        multi = np.asarray(res["multi"], bool)
+        if drop_multi:
+            mapped &= ~multi
+        z = np.zeros(n, np.int32)
+        junc = res.get("junc")
+        junc = mapped & (np.asarray(junc, bool) if junc is not None else False)
         indel = np.where(mapped, res["indel"], 0).astype(np.int32)
-        nm = (np.asarray(res["mism"], np.int32) + np.abs(indel)).astype(np.int32)
-        clip_l = np.asarray(res["clip_l"], np.int32) if "clip_l" in res else None
-        clip_r = np.asarray(res["clip_r"], np.int32) if "clip_r" in res else None
-        overrides = res.get("cigar_override") or {}
-        multi_out = None
-        if self.cfg.multi_best > 1 and "alt_pos" in res:
-            multi_out = np.asarray(res["multi"], bool) & mapped
-        suppress = None
-        if overrides or (multi_out is not None and multi_out.any()):
-            suppress = np.zeros(n, np.uint8)
-            for i in overrides:
-                suppress[i] = 1
-            if multi_out is not None:
-                suppress[multi_out] = 1
-        hi = np.ones(n, np.int32)
-        nh = np.where(mapped, 1, 0).astype(np.int32)  # SE: tags iff mapped
-        blob = native.format_sam_records(
-            batch.names,
-            batch.codes, batch.quals, batch.lengths.astype(np.int32),
-            flags, cidx.astype(np.int32), (coff + 1).astype(np.int32),
-            np.asarray(res["mapq"], np.int32), indel,
-            np.asarray(res["split"], np.int32), None,
-            clip_l, clip_r,
-            mapped.astype(np.uint8), nm, g.names,
-            suppress=suppress, hi=hi, nh=nh,
+        strand = np.asarray(res["strand"], np.int32)
+        cols = dict(
+            names=batch.names, codes=batch.codes, quals=batch.quals,
+            lens=batch.lengths.astype(np.int32),
+            flags=np.where(mapped, np.where(strand == 1, samio.FLAG_REVERSE, 0),
+                           samio.FLAG_UNMAPPED).astype(np.int32),
+            mapped=mapped, cidx=cidx.astype(np.int32), coff=coff,
+            mapq=np.asarray(res["mapq"], np.int32), indel=indel,
+            split=np.asarray(res["split"], np.int32),
+            junc=junc, junc_gap=np.where(junc, res.get("junc_gap", z), 0),
+            clip_l=np.asarray(res.get("clip_l", z), np.int32),
+            clip_r=np.asarray(res.get("clip_r", z), np.int32),
+            nm=np.asarray(res["mism"], np.int32) + np.abs(indel),
+            hi=np.ones(n, np.int32), nh=mapped.astype(np.int32),  # SE: tags iff mapped
         )
-        if blob is None:
+        return cols, multi & mapped
+
+    def _write_records(self, writer, cols, skip=None, cigars=None) -> bool:
+        """Write one emit's records from their columns in one native call,
+        one a row in row order but for the rows skip marks: SAM text to a
+        SamWriter, BAM records to a BamRecordWriter's BAM.  cols: names,
+        codes, quals, lens, flags, mapped, cidx and coff (contig and 0-based
+        offset), mapq, indel, split, junc_gap, clip_l, clip_r, nm, hi, nh
+        (HI/NH tags where nh > 0) and, for pairs, rnext (-1 "*", -2 "=",
+        else a contig), pnext (1-based, 0 for none) and tlen.  cigars, BAM
+        only: the CIGAR strings of chosen mapped rows.  The BAM encoding's
+        time, from these columns on, counts as packing.  False, with
+        nothing written, when the library is missing or refuses a row."""
+        from .. import native
+
+        c = cols
+        if isinstance(writer, samio.SamWriter):
+            blob = native.format_sam_records(
+                c["names"], c["codes"], c["quals"], c["lens"], c["flags"],
+                c["cidx"], c["coff"] + 1, c["mapq"], c["indel"], c["split"],
+                c["junc_gap"], c["clip_l"], c["clip_r"], c["mapped"], c["nm"],
+                self.genome.names, suppress=skip, rnext_cidx=c.get("rnext"),
+                pnext=c.get("pnext"), tlen=c.get("tlen"), hi=c["hi"], nh=c["nh"],
+            )
+            if blob is None:
+                return False
+            writer.write_bytes(blob)
+            return True
+        bam = writer.bam
+        t0 = time.perf_counter_ns()
+        ref_of = bam.ref_ids([*self.genome.names, "*"])
+        ref_of, star = ref_of[:-1], ref_of[-1]
+        mapped = np.asarray(c["mapped"], bool)
+        ref_id = np.where(mapped, ref_of[np.where(mapped, c["cidx"], 0)], star)
+        n = len(mapped)
+        if "rnext" in c:
+            rn = np.asarray(c["rnext"])
+            next_ref = np.where(rn == -2, ref_id,
+                                np.where(rn == -1, star, ref_of[np.maximum(rn, 0)]))
+            next_pos, tlen = np.asarray(c["pnext"]) - 1, c["tlen"]
+        else:
+            next_ref, next_pos, tlen = np.full(n, star), np.full(n, -1), np.zeros(n)
+        got = native.format_bam_records(
+            c["names"], c["codes"], c["quals"], c["lens"], c["flags"], ref_id,
+            np.where(mapped, c["coff"], -1), np.where(mapped, c["mapq"], 0),
+            next_ref, next_pos, tlen, mapped, c["indel"], c["split"],
+            c["junc_gap"], c["clip_l"], c["clip_r"], c["nm"], c["hi"], c["nh"],
+            skip=skip,
+            cigars={i: cigar_ops(s) for i, s in (cigars or {}).items()},
+        )
+        if got is None:
             return False
-        writer.write_bytes(blob)
-        if multi_out is not None:
+        bam.add_records(*got, pack_ns=time.perf_counter_ns() - t0)
+        return True
+
+    def _emit_se_native(self, writer, batch, res, summary, indel_events) -> bool:
+        """One single-end chunk's records through _write_records, and the
+        summary and indel events _emit_sam_python gives.  SAM text writes
+        the host rescues' CIGARs and -B multi-best records after the
+        chunk; BAM keeps input order, with the rescues' CIGARs in place.
+        False, with nothing written, where _emit_sam_python alone covers
+        the chunk: another writer, read groups, --minMappedLength, for SAM
+        text -R's dropped unmapped reads, for BAM --minMappedFraction, -B
+        multi-best records, junction rows without a gap, or no library."""
+        cfg = self.cfg
+        sam = isinstance(writer, samio.SamWriter)
+        if (cfg.rg_id or cfg.min_mapped_length > 0
+                or not (sam or isinstance(writer, samio.BamRecordWriter))
+                or (cfg.ignore_unmapped if sam else cfg.min_mapped_fraction > 0)):
+            return False
+        n = len(batch)
+        # -u reports multi-mapping reads unmapped (-B N overrides); the SAM
+        # text path keeps those a host rescue mapped, as the JAX package's
+        # does (PERF.md section 7)
+        cols, multi = self._se_columns(
+            batch, res, drop_multi=not sam and not cfg.report_multi_mapping
+            and cfg.multi_best <= 1)
+        mapped = cols["mapped"]
+        overrides = res.get("cigar_override") or {}
+        multi_out = (multi if cfg.multi_best > 1 and "alt_pos" in res
+                     else np.zeros(n, bool))
+        if sam:
+            skip = None
+            if overrides or multi_out.any():
+                skip = multi_out.astype(np.uint8)
+                skip[list(overrides)] = 1
+            if not self._write_records(writer, cols, skip):
+                return False
             for i in np.flatnonzero(multi_out):
-                self._emit_multi_read(writer, batch, res, int(i), cidx, coff)
-        for i, (cigar, mism_i, nm_i) in sorted(overrides.items()):
-            if multi_out is not None and multi_out[i]:
-                continue
-            L = int(batch.lengths[i])
-            seq_codes = batch.codes[i, :L]
-            qual = batch.quals[i, :L].tobytes().decode()
-            if strand[i] == 1:
-                seq = dna.decode(dna.revcomp(seq_codes))
-                qual = qual[::-1]
-            else:
-                seq = dna.decode(seq_codes)
-            writer.write(samio.SamRecord(
-                batch.names[i], int(flags[i]), g.names[int(cidx[i])],
-                int(coff[i]) + 1, int(res["mapq"][i]), cigar,
-                seq=seq, qual=qual,
-                tags=["HI:i:1", "NH:i:1", f"NM:i:{nm_i}"],
-            ))
-        # summary + indel-event bookkeeping (vectorised / sparse loop)
-        summary.total += n
-        nm_mapped = int(mapped.sum())
-        summary.mapped += nm_mapped
-        summary.unmapped += n - nm_mapped
-        multi = np.asarray(res["multi"], bool) & mapped
-        summary.multi += int(multi.sum())
-        summary.unique += nm_mapped - int(multi.sum())
-        has_indel = mapped & (indel != 0)
-        if overrides:
-            for i, (cig_o, _m, _n) in overrides.items():
-                has_indel[i] = ("I" in cig_o) or ("D" in cig_o)
-        summary.indels += int(has_indel.sum())
-        if indel_events is not None:
-            done = res.get("_events_done") or ()
-            for i in np.flatnonzero(has_indel):
-                if i in overrides or i in done:
-                    continue  # events recorded by the override producer
-                iv = int(indel[i])
-                if iv == 0:
+                self._emit_multi_read(writer, batch, res, int(i),
+                                      cols["cidx"], cols["coff"])
+            for i, (cigar, _mism, nm_i) in sorted(overrides.items()):
+                if multi_out[i]:
                     continue
-                sp = int(res["split"][i])
                 L = int(batch.lengths[i])
                 seq_codes = batch.codes[i, :L]
-                if strand[i] == 1:
+                qual = batch.quals[i, :L].tobytes().decode()
+                if int(res["strand"][i]) == 1:
                     seq = dna.decode(dna.revcomp(seq_codes))
+                    qual = qual[::-1]
                 else:
                     seq = dna.decode(seq_codes)
-                ins_seq = seq[sp : sp - iv] if iv < 0 else ""
-                key = (int(cidx[i]), int(coff[i]) + sp - 1, iv)
-                sup, prev = indel_events.get(key, (0, ins_seq))
-                indel_events[key] = (sup + 1, prev)
+                writer.write(samio.SamRecord(
+                    batch.names[i], int(cols["flags"][i]),
+                    self.genome.names[int(cols["cidx"][i])],
+                    int(cols["coff"][i]) + 1, int(res["mapq"][i]), cigar,
+                    seq=seq, qual=qual,
+                    tags=["HI:i:1", "NH:i:1", f"NM:i:{nm_i}"],
+                ))
+        else:
+            if multi_out.any() or (cols["junc"] & (cols["junc_gap"] <= 0)).any():
+                return False   # records the encoder does not build
+            overrides = {i: ov for i, ov in overrides.items()
+                         if i < n and mapped[i]}
+            for i, (_cigar, _mism, nm_i) in overrides.items():
+                # the python path's override record has NM alone
+                cols["nm"][i], cols["nh"][i] = nm_i, 0
+            if not self._write_records(
+                writer, cols, skip=~mapped if cfg.ignore_unmapped else None,
+                cigars={i: ov[0] for i, ov in overrides.items()},
+            ):
+                return False
+        summary.total += n
+        n_mapped = int(mapped.sum())
+        summary.mapped += n_mapped
+        summary.unmapped += n - n_mapped
+        summary.multi += int(multi.sum())
+        summary.unique += n_mapped - int(multi.sum())
+        plain = mapped & (cols["indel"] != 0)
+        plain[list(overrides)] = False   # their producer recorded the events
+        summary.indels += int((plain & ~cols["junc"]).sum()) + sum(
+            "I" in ov[0] or "D" in ov[0] for ov in overrides.values())
+        for i in np.flatnonzero(plain):
+            _add_indel_event(indel_events, batch, res, i, int(cols["indel"][i]),
+                             cols["cidx"][i], cols["coff"][i])
         return True
 
     def _emit_sam_python(
@@ -2117,20 +2205,19 @@ class Aligner:
     def _emit_sam_pe_native(self, writer, b1, b2, res1, res2,
                             summary: AlignSummary,
                             indel_events: dict | None = None) -> bool:
-        """Vectorised PE record emission through the native formatter
-        (mate columns added to format_sam_records); the python fallback
+        """Vectorised PE record emission through _write_records (mate
+        columns added to the single-end ones); to BAM with the host
+        rescues' CIGARs in place, to SAM text only for chunks without
+        them (it would write them out of order).  The python fallback
         below formats the same shared fields."""
-        from .. import native
-
-        if native.get_lib() is None:
+        if self.cfg.rg_id:
             return False
-        # raw-bytes output needs a SAM text sink (BAM writers re-pack
-        # records; same gate as the SE fast path) and no RG tagging
-        if not isinstance(writer, samio.SamWriter) or self.cfg.rg_id:
+        to_bam = isinstance(writer, samio.BamRecordWriter)
+        if not to_bam and (
+            not isinstance(writer, samio.SamWriter)
+            or res1.get("cigar_override") or res2.get("cigar_override")
+        ):
             return False
-        if res1.get("cigar_override") or res2.get("cigar_override"):
-            return False
-        g = self.genome
         R = len(b1.names)
         if R == 0:
             return True
@@ -2146,46 +2233,42 @@ class Aligner:
             out[1::2] = b
             return out
 
-        names = [None] * (2 * R)
-        names[0::2] = b1.names
-        names[1::2] = b2.names
         codes = np.zeros((2 * R, Lmax), np.uint8)
         quals = np.zeros((2 * R, Lmax), np.uint8)
         codes[0::2, : b1.codes.shape[1]] = b1.codes
         codes[1::2, : b2.codes.shape[1]] = b2.codes
         quals[0::2, : b1.quals.shape[1]] = b1.quals
         quals[1::2, : b2.quals.shape[1]] = b2.quals
-        lens = interleave(b1.lengths.astype(np.int32),
-                          b2.lengths.astype(np.int32))
         okA = interleave(ok1.astype(np.uint8), ok2.astype(np.uint8))
-        suppress = None
-        if self.cfg.ignore_unmapped:
-            suppress = (okA == 0).astype(np.uint8)
         # HI/NH whenever EITHER end of the fragment mapped
         # (write_single_fragment core.c:2047)
-        any_ok = ok1 | ok2
-        hi = np.ones(2 * R, np.int32)
-        nh = interleave(any_ok.astype(np.int32), any_ok.astype(np.int32))
-        blob = native.format_sam_records(
-            names, codes, quals, lens,
-            interleave(m1[0], m2[0]),
-            interleave(c1, c2),
-            interleave((o1 + 1).astype(np.int32), (o2 + 1).astype(np.int32)),
-            interleave(m1[9], m2[9]),
-            interleave(m1[4], m2[4]),
-            interleave(m1[5], m2[5]),
-            interleave(m1[10], m2[10]),
-            interleave(m1[6], m2[6]), interleave(m1[7], m2[7]),
-            okA, interleave(m1[8], m2[8]),
-            g.names, suppress=suppress,
-            rnext_cidx=interleave(m1[1], m2[1]),
-            pnext=interleave(m1[2], m2[2]),
-            tlen=interleave(m1[3], m2[3]),
-            hi=hi, nh=nh,
+        any_ok = (ok1 | ok2).astype(np.int32)
+        cols = dict(
+            codes=codes, quals=quals,
+            lens=interleave(b1.lengths.astype(np.int32), b2.lengths.astype(np.int32)),
+            mapped=okA, cidx=interleave(c1, c2), coff=interleave(o1, o2),
+            hi=np.ones(2 * R, np.int32), nh=interleave(any_ok, any_ok),
         )
-        if blob is None:
+        for k, col in enumerate(("flags", "rnext", "pnext", "tlen", "indel",
+                                 "split", "clip_l", "clip_r", "nm", "mapq",
+                                 "junc_gap")):
+            cols[col] = interleave(m1[k], m2[k])
+        skip = (okA == 0) if self.cfg.ignore_unmapped else None
+        cigars = None
+        if to_bam:
+            # the python emitter names both ends by the first's read
+            cols["names"] = [x for x in b1.names for _ in (0, 1)]
+            # an override replaces the CIGAR alone: NM and the tags stay
+            cigars = {
+                2 * i + mate: ov[0]
+                for mate, (res, ok) in enumerate(((res1, ok1), (res2, ok2)))
+                for i, ov in (res.get("cigar_override") or {}).items()
+                if i < R and ok[i]
+            }
+        else:
+            cols["names"] = [x for pair in zip(b1.names, b2.names) for x in pair]
+        if not self._write_records(writer, cols, skip, cigars):
             return False
-        writer.write_bytes(blob)
         summary.total += 2 * R
         n_ok = int(ok1.sum()) + int(ok2.sum())
         summary.mapped += n_ok
@@ -2198,26 +2281,15 @@ class Aligner:
         summary.indels += int((ok1 & (m1[4] != 0)).sum()) + int(
             (ok2 & (m2[4] != 0)).sum()
         )
-        if indel_events is not None:
-            for (batch, res, cidx, coff, ok, ind) in (
-                (b1, res1, c1, o1, ok1, m1[4]), (b2, res2, c2, o2, ok2, m2[4]),
-            ):
-                done = res.get("_events_done") or ()
-                for i in np.flatnonzero(ok & (ind != 0)):
-                    if i in done:
-                        continue  # recorded by the event-placement pass
-                    iv = int(ind[i])
-                    sp = int(res["split"][i])
-                    L = int(batch.lengths[i])
-                    codes_i = batch.codes[i, :L]
-                    if int(res["strand"][i]):
-                        seq = dna.decode(dna.revcomp(codes_i))
-                    else:
-                        seq = dna.decode(codes_i)
-                    ins_seq = seq[sp : sp - iv] if iv < 0 else ""
-                    key = (int(cidx[i]), int(coff[i]) + sp - 1, iv)
-                    sup, prev = indel_events.get(key, (0, ins_seq))
-                    indel_events[key] = (sup + 1, prev)
+        mates = ((b1, res1, c1, o1, m1[4]), (b2, res2, c2, o2, m2[4]))
+        rows = [(i, mate) for mate, ok in enumerate((ok1, ok2))
+                for i in np.flatnonzero(ok & (mates[mate][4] != 0))]
+        if to_bam:
+            rows.sort()   # the python emitter's order: by pair, then mate
+        for i, mate in rows:
+            batch, res, cidx, coff, ind = mates[mate]
+            _add_indel_event(indel_events, batch, res, i, int(ind[i]),
+                             cidx[i], coff[i])
         return True
 
     @_emit_span

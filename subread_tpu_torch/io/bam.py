@@ -6,7 +6,8 @@ Reference: sambam-file.c — BGZF chunk reader (`SamBam_fgets`,
 sambam-file.h:195), threaded BGZF writer (+BAI) (sambam-file.h:110-149),
 bin⇄SAM record conversion (:225).  Python implementation; the BGZF
 deflate path moves to the C++ host library when output throughput
-demands it.
+demands it.  The port adds `BamWriter.add_records`, which appends records
+its native encoder packed (`native/bamrec.cpp`).
 """
 
 from __future__ import annotations
@@ -260,13 +261,30 @@ class BamReader:
         return fields
 
 
+def cigar_ops(cigar: str) -> list[int]:
+    """A SAM CIGAR string as BAM's u32 operations (length << 4 | op); "*"
+    gives none."""
+    ops = []
+    if cigar != "*":
+        num = 0
+        for ch in cigar:
+            if ch.isdigit():
+                num = num * 10 + ord(ch) - 48
+            else:
+                ops.append((num << 4) | CIGAR_OPS.index(ch))
+                num = 0
+    return ops
+
+
 class BamWriter:
     """Minimal BAM writer: header + records, BGZF-compressed.  While
-    pack_ns is an int, add_sam_fields adds to it the nanoseconds it spends
-    packing records, a flush excluded."""
+    pack_ns is an int, the nanoseconds spent packing records, a flush
+    excluded, add to it, and the records packed count in records_python
+    (add_sam_fields) or records_native (add_records)."""
 
     FLUSH_BYTES = 1 << 22   # records buffered before a deflate
     pack_ns: int | None = None
+    records_python = records_native = 0
 
     def __init__(self, path: str, ref_names: list[str], ref_lengths: list[int],
                  header_text: str = ""):
@@ -289,15 +307,7 @@ class BamWriter:
         ref_id = self._ref_idx.get(fields[2], -1)
         pos = int(fields[3]) - 1
         mapq = int(fields[4])
-        cigar_ops = []
-        if fields[5] != "*":
-            num = 0
-            for ch in fields[5]:
-                if ch.isdigit():
-                    num = num * 10 + ord(ch) - 48
-                else:
-                    cigar_ops.append((num << 4) | CIGAR_OPS.index(ch))
-                    num = 0
+        ops = cigar_ops(fields[5])
         rnext = fields[6]
         next_ref = (
             ref_id if rnext == "=" else self._ref_idx.get(rnext, -1)
@@ -332,16 +342,41 @@ class BamWriter:
         rec = struct.pack(
             "<iiBBHHHiiii",
             ref_id, pos, len(qname), mapq,
-            0, len(cigar_ops), flag, l_seq, next_ref, next_pos, tlen,
+            0, len(ops), flag, l_seq, next_ref, next_pos, tlen,
         )
         rec += qname
-        rec += b"".join(struct.pack("<I", c) for c in cigar_ops)
+        rec += b"".join(struct.pack("<I", c) for c in ops)
         rec += bytes(seq_nib) + qual + tags
         self._buf += struct.pack("<i", len(rec)) + rec
         if t0:
             self.pack_ns += time.perf_counter_ns() - t0
+            self.records_python += 1
         if len(self._buf) > self.FLUSH_BYTES:
             self._flush()
+
+    def ref_ids(self, names) -> np.ndarray:
+        """The header's reference ids of contig names, -1 for a name it
+        does not hold."""
+        return np.asarray([self._ref_idx.get(x, -1) for x in names], np.int32)
+
+    def add_records(self, records, ends, pack_ns: int = 0) -> None:
+        """Append encoded records (a buffer; ends: each record's end in
+        it, ascending; pack_ns: the time their encoding took), flushing
+        where add_sam_fields would have, after the first record that takes
+        the buffer past FLUSH_BYTES, so the BGZF blocks are the same."""
+        if self.pack_ns is not None:
+            self.pack_ns += pack_ns
+            self.records_native += len(ends)
+        records, start, base = memoryview(records), 0, len(self._buf)
+        while True:
+            # the first record end past the threshold of this buffer
+            j = np.searchsorted(ends, self.FLUSH_BYTES - base + start, "right")
+            if j == len(ends):
+                break
+            self._buf += records[start:ends[j]]
+            self._flush()
+            start, base = int(ends[j]), 0
+        self._buf += records[start:]
 
     @timing.span("bgzf.deflate")
     def _flush(self):

@@ -11,10 +11,12 @@ Only the sources and wrappers the port calls are copied: SAM formatting
 inflation (`bgzf.cpp`), featureCounts' counting passes and record
 parser (`fccount.cpp`, called by `quant.featurecounts` and
 `quant.device_count`) and exactSNP's BAM pileup (`snppile.cpp`, called by
-`quant.snp`; its entry point also declares its `argtypes` here).  The
-library is built into `build/native/` at the root of the checkout
-(listed in .gitignore), named by a hash of its sources and flags, never
-into the package directory.
+`quant.snp`; its entry point also declares its `argtypes` here).  One
+source is the port's own: the BAM record encoder (`bamrec.cpp`, through
+`format_bam_records`, called by `align.pipeline`).  The library is built
+into `build/native/` at the root of the checkout (listed in .gitignore),
+named by a hash of its sources and flags, never into the package
+directory.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import numpy as np
 _HERE = pathlib.Path(__file__).parent
 BUILD_DIR = _HERE.parent.parent / "build" / "native"
 SOURCES = ("samtext.cpp", "pack.cpp", "dpalign.cpp", "bgzf.cpp", "fccount.cpp",
-           "snppile.cpp")
+           "snppile.cpp", "bamrec.cpp")
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-pthread")
 _LIB = None
 _TRIED = False
@@ -89,6 +91,10 @@ def get_lib():
         P, L, P, I32, P, P, I32, I32, I32, I32, P,
         P, P, P, P, P, L, P, L, ctypes.POINTER(L), ctypes.POINTER(L),
     ]
+    lib.format_bam_records.restype = L
+    lib.format_bam_records.argtypes = (
+        [I32, P, P, P, P, I32] + [P] * 17 + [I32, P, P, P, P, ctypes.c_int64, P]
+    )
     _LIB = lib
     return _LIB
 
@@ -172,6 +178,69 @@ def format_sam_records(
     if written < 0:
         return None
     return out.raw[:written]
+
+
+def format_bam_records(
+    names: list[str],
+    codes: np.ndarray, quals: np.ndarray, lens: np.ndarray,
+    flags: np.ndarray, ref_id: np.ndarray, pos: np.ndarray,
+    mapq: np.ndarray, next_ref: np.ndarray, next_pos: np.ndarray,
+    tlen: np.ndarray, mapped: np.ndarray,
+    indel: np.ndarray, split: np.ndarray, junc_gap: np.ndarray,
+    clip_l: np.ndarray, clip_r: np.ndarray, nm: np.ndarray,
+    hi: np.ndarray, nh: np.ndarray,
+    skip: np.ndarray | None = None,
+    cigars: dict[int, list[int]] | None = None,
+) -> tuple[np.ndarray, np.ndarray] | None:
+    """Encode a chunk's BAM records (bamrec.cpp), one a row in row order
+    but for the rows skip marks: (records, ends), the records as uint8 and
+    each record's end offset in them.  Columns are those of a BAM record's
+    fixed part (ref_id, pos and next_pos 0-based, -1 for none) and those
+    the emitters build the CIGAR from; cigars gives the CIGAR operations
+    (u32 words) of chosen mapped rows.  HI/NH tags where nh > 0, NM on
+    mapped rows.  None when the library is missing or a row holds what
+    BamWriter.add_sam_fields refuses: the caller then packs the chunk in
+    Python.  Columns of another length than names raise ValueError."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    n = len(names)
+    name_blob = ("\0".join(names) + "\0").encode()
+    c = lambda a: np.ascontiguousarray(a, dtype=np.int32)
+    cols = [c(a) for a in (flags, ref_id, pos, mapq, next_ref, next_pos, tlen)]
+    cols.append(np.ascontiguousarray(mapped, dtype=np.uint8))
+    cols += [c(a) for a in (indel, split, junc_gap, clip_l, clip_r, nm, hi, nh)]
+    skip = None if skip is None else np.ascontiguousarray(skip, dtype=np.uint8)
+    rows = sorted(cigars or ())
+    ov_row = np.asarray(rows, np.int32)
+    ov_off = np.zeros(len(rows) + 1, np.int64)
+    np.cumsum([len(cigars[i]) for i in rows], out=ov_off[1:])
+    ov_ops = np.asarray([w for i in rows for w in cigars[i]], np.uint32)
+    a_codes = np.ascontiguousarray(codes, dtype=np.uint8)
+    a_quals = np.ascontiguousarray(quals, dtype=np.uint8)
+    a_lens = c(lens)
+    per_row = [a_lens, *cols] + ([] if skip is None else [skip])
+    if (a_codes.ndim != 2 or a_quals.shape != a_codes.shape
+            or len(a_codes) != n or int(a_lens.max(initial=0)) > a_codes.shape[1]
+            or any(len(a) != n for a in per_row)
+            or (rows and not 0 <= rows[0] <= rows[-1] < n)):
+        raise ValueError("format_bam_records: columns that do not match the names")
+    if name_blob.count(0) != n:
+        return None     # a name holding a NUL: the Python packer's case
+    cap = (n * (4 + 32 + 20 + 21) + len(name_blob) + 4 * len(ov_ops)
+           + 2 * int(a_lens.sum()) + 64)
+    out = np.empty(cap, np.uint8)
+    ends = np.empty(n, np.int64)
+    ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)
+    written = lib.format_bam_records(
+        n, name_blob, ptr(a_codes), ptr(a_quals), ptr(a_lens), a_codes.shape[1],
+        *[ptr(a) for a in cols], ptr(skip) if skip is not None else None,
+        len(rows), ptr(ov_row), ptr(ov_off), ptr(ov_ops),
+        ptr(out), cap, ptr(ends),
+    )
+    if written < 0:
+        return None
+    return out[:written], (ends if skip is None else ends[skip == 0])
 
 
 # featureCounts fast-path summary slot order (fccount.cpp enum)

@@ -24,6 +24,7 @@ from subread_tpu.utils.simulate import simulate_reads
 from subread_tpu_torch.align.pipeline import Aligner
 from subread_tpu_torch.synth import synthetic_genome, synthetic_reads, write_fastq
 from subread_tpu_torch.tools import align as align_cli
+from torch_native_fixtures import native_mode, native_records  # noqa: F401  (fixtures)
 
 # the test workers share the machine's cores: one torch thread each
 torch.set_num_threads(1)
@@ -225,3 +226,25 @@ def test_unported_options_raise(genome, index):
             Aligner(genome, index, cli_config(), device="cuda")
         with pytest.raises(RuntimeError):
             align_cli.main(["-t", "1", "-i", "x", "-r", "x", "-o", "x"])
+
+
+def test_bam_matches_jax(genome, index, jax_run, native_mode, native_records):
+    """`tools.align -o x.bam` writes the JAX aligner's BAM byte for byte,
+    with the native library (every record packed by its BAM encoder,
+    the host rescues' CIGARs in place) and without it."""
+    from subread_tpu_torch.io.bam import BamReader
+
+    d = jax_run
+    packed = native_records
+    jax_bam, port_bam = d / f"jax_{native_mode}.bam", d / f"port_{native_mode}.bam"
+    JAligner(genome, index, cli_config()).align_file(str(d / "reads.fq"), str(jax_bam))
+    align_cli.main(["-t", "1", "-i", str(d / "idx"), "-r", str(d / "reads.fq"),
+                    "-o", str(port_bam), "--device", "cpu"])
+    assert same_files(port_bam, jax_bam)
+    assert same_files(str(port_bam) + ".indel.vcf", str(jax_bam) + ".indel.vcf")
+    recs = list(BamReader(str(port_bam)))
+    assert len(recs) == 2000 + 512 + 14
+    assert packed[0] == (len(recs) if native_mode == "native" else 0)
+    # a host rescue's CIGAR (override) is the mapped record without HI/NH
+    overrides = [r for r in recs if not r.flag & 4 and "HI" not in r.tags]
+    assert any(sum(op in "ID" for _, op in r.cigar) > 1 for r in overrides)

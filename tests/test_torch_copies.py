@@ -49,6 +49,7 @@ from subread_tpu_torch.tools import align as talign
 from subread_tpu_torch.tools import buildindex as tbuildindex
 from subread_tpu_torch.tools import subjunc as tsubjunc
 from subread_tpu_torch.utils import simulate as tsim
+from torch_native_fixtures import native_mode  # noqa: F401  (fixtures)
 
 # each package as one namespace, so a test can run either side
 JAX = dict(native=jnative, dna=jdna, indel=jindel, build=jbuild,
@@ -258,19 +259,6 @@ def test_simulate_reads_equal(genomes, paired):
         indel_rate=0.05, paired=paired) for side, m in SIDES.items()}
     assert_same(got["jax"], got["port"], "reads")
     assert (got["port"][1] is not None) == paired
-
-
-@pytest.fixture(params=["native", "fallback"])
-def native_mode(request, monkeypatch):
-    """Both packages with their native library, or both with it missing
-    (the pure-Python fallback)."""
-    if request.param == "fallback":
-        for mod in (jnative, tnative):
-            monkeypatch.setattr(mod, "_LIB", None)
-            monkeypatch.setattr(mod, "_TRIED", True)
-    else:
-        assert jnative.get_lib() is not None and tnative.get_lib() is not None
-    return request.param
 
 
 def _sam_inputs(n=50, L=100):

@@ -31,6 +31,7 @@ from subread_tpu_torch.align import pipeline as t_pipeline
 from subread_tpu_torch.align.pipeline import Aligner
 from subread_tpu_torch.synth import synthetic_genome, synthetic_pairs, write_fastq
 from subread_tpu_torch.tools import align as align_cli
+from torch_native_fixtures import native_mode, native_records  # noqa: F401  (fixtures)
 
 # the test workers share the machine's cores: one torch thread each
 torch.set_num_threads(1)
@@ -367,3 +368,25 @@ def test_cli_pe_matches_jax(jax_run):
     assert same_files(d / "cli.sam", d / "jax.sam")
     assert same_files(str(d / "cli.sam") + ".indel.vcf",
                       str(d / "jax.sam") + ".indel.vcf")
+
+
+def test_bam_pe_matches_jax(genome, index, jax_run, native_mode, native_records):
+    """`tools.align -r r1.fq -R r2.fq -o x.bam` writes the JAX aligner's
+    BAM byte for byte, with the native library (every record packed by
+    its BAM encoder) and without it."""
+    from subread_tpu_torch.io.bam import BamReader
+
+    d = jax_run
+    packed = native_records
+    jax_bam, port_bam = d / f"jax_{native_mode}.bam", d / f"port_{native_mode}.bam"
+    JAligner(genome, index, cli_config()).align_file_pe(
+        str(d / "r1.fq"), str(d / "r2.fq"), str(jax_bam))
+    align_cli.main(["-t", "1", "-i", str(d / "idx"), "-r", str(d / "r1.fq"),
+                    "-R", str(d / "r2.fq"), "-o", str(port_bam), "--device", "cpu"])
+    assert same_files(port_bam, jax_bam)
+    assert same_files(str(port_bam) + ".indel.vcf", str(jax_bam) + ".indel.vcf")
+    recs = list(BamReader(str(port_bam)))
+    assert len(recs) == 2 * (1536 + 512)
+    assert packed[0] == (len(recs) if native_mode == "native" else 0)
+    assert any(r.tlen < 0 for r in recs) and any(r.flag & 4 for r in recs)
+    assert any(r.next_ref_id not in (r.ref_id, -1) for r in recs)

@@ -39,6 +39,7 @@ from subread_tpu_torch.synth import (
 )
 from subread_tpu_torch.tools import align as align_cli
 from subread_tpu_torch.tools import subjunc as subjunc_cli
+from torch_native_fixtures import native_mode, native_records  # noqa: F401  (fixtures)
 
 # the test workers share the machine's cores: one torch thread each
 torch.set_num_threads(1)
@@ -326,3 +327,24 @@ def test_cli_matches_jax(data, aligners):
     assert os.path.exists(d / "sv.sam.breakpoints.vcf")
     cfg = config("--sv", subjunc=False)
     assert cfg.detect_junctions and cfg.all_junctions and cfg.min_votes == 3
+
+
+def test_bam_pe_matches_jax(data, aligners, native_mode, native_records):
+    """`tools.subjunc -r r1.fq -R r2.fq -o x.bam` writes the JAX aligner's
+    BAM byte for byte, with the native library (every record packed by
+    its BAM encoder, chained junction CIGARs in place) and without it."""
+    from subread_tpu_torch.io.bam import BamReader
+
+    d = data["dir"]
+    _, jal = aligners("subjunc")
+    packed = native_records
+    jax_bam, port_bam = d / f"jp_{native_mode}.bam", d / f"tp_{native_mode}.bam"
+    jal.align_file_pe(str(d / "r1.fq"), str(d / "r2.fq"), str(jax_bam))
+    subjunc_cli.main(["-i", str(d / "idx"), "-r", str(d / "r1.fq"), "-R",
+                      str(d / "r2.fq"), "-o", str(port_bam), "--device", "cpu"])
+    same_outputs(str(port_bam), str(jax_bam), False)
+    recs = list(BamReader(str(port_bam)))
+    assert len(recs) == 2000
+    assert packed[0] == (len(recs) if native_mode == "native" else 0)
+    # chained junctions: records with two introns, or an intron and a clip
+    assert any(sum(op == "N" for _, op in r.cigar) > 1 for r in recs)

@@ -3,15 +3,16 @@ the align pipeline, on the CPU: nothing is listed outside a profiler
 session; inside one, align_file and align_file_pe give each chunk one
 submit, collect and emit span, children lie inside their parents, emit
 splits into its own time, the packing counted in it and the deflates
-nested in it, the bgzf.bytes_in counter matches the BAM file, the outputs
-are the same bytes with and without recording, and a profiler op run
-inside a span lies inside it (one clock)."""
+nested in it, the records the native encoder and the Python packer count
+add up to each BAM chunk's, the bgzf.bytes_in counter matches the BAM
+file, the outputs are the same bytes with and without recording, and a
+profiler op run inside a span lies inside it (one clock)."""
 
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from subread_tpu_torch import timing
+from subread_tpu_torch import native, timing
 from subread_tpu_torch.align.pipeline import Aligner
 from subread_tpu_torch.config import aligner_config
 from subread_tpu_torch.index.build import build_hash_index
@@ -121,6 +122,20 @@ def test_spans_of_a_profiled_run(setup, tmp_path, monkeypatch, mode, fmt):
             assert 0 < inner <= s.end_ns - s.start_ns, (s, inner)
         else:
             assert inner == 0, (s, inner)
+
+    # per BAM chunk: the records packed by the native encoder and by
+    # add_sam_fields add up to the chunk's records, the encoder's > 0
+    # with the native library; SAM counts neither
+    packed = {}
+    for c in counters:
+        if c.name in ("bam.records_native", "bam.records_python"):
+            assert c.name not in packed.setdefault(c.chunk, {}), c
+            packed[c.chunk][c.name] = c.value
+    assert sorted(packed) == sorted(pack)
+    for k, got in packed.items():
+        per = (2 if mode == "pe" else 1) * min(chunk, n - k * chunk)
+        assert got["bam.records_native"] + got["bam.records_python"] == per, got
+        assert got["bam.records_native"] > 0 or native.get_lib() is None, got
 
     n_in = sum(c.value for c in counters if c.name == "bgzf.bytes_in")
     assert n_in == (len(bam.bgzf_decompress(traced)) if fmt == "bam" else 0)
