@@ -84,12 +84,19 @@ Phases; each one passes or ends the run with a non-zero exit:
      deletion; synth.synthetic_long_reads): every read in the SAM, the
      mapped share, the share within 1200 bp of its simulated start, the
      share of planted deletions written as a D or an N of at least 250
-     bases, the kernel launched; the kernel against its plain version at
-     sublong's shapes (2048 windows x 20 probes, H=16, and its tiers'
-     wide shapes), as in phase 2; reads/s, windows/s and the host seconds
-     of chaining; then the first 25 reads through sublong_file on the CPU
+     bases, both kernels launched (probe_hits, and banded_dp once a chunk
+     with stretches to refine); the probe_hits kernel against its plain
+     version at sublong's shapes (2048 windows x 20 probes, H=16, and its
+     tiers' wide shapes), as in phase 2; reads/s, windows/s and the host
+     seconds of chaining and of the batched refinement; the banded_dp
+     kernel against its plain version and banded_align on the CLI run's
+     largest chunk of stretches, op for op, with its device ms (CUDA
+     events, cold L2), its band cells, the bound of its traceback bytes at
+     3.35 TB/s and the longest segment's rows (the serial chain that
+     bounds it); then the first 25 reads through sublong_file on the CPU
      and on the card, with sublong's options and with -X's: identical SAM
-     records;
+     records (the CPU refining with banded_dp's plain version, the card
+     with the kernel);
  12. featureCounts on a GTF of synthetic genes at GENCODE's density
      (about 20 genes and 500 exon rows per Mb, multi-exon transcripts,
      genes overlapping on both strands; synth.synthetic_genes): phase 3's
@@ -161,14 +168,15 @@ path's kernel launches are counted from 0 just before it is driven and
 read just after; the counts are printed on one line.  It prints the
 seconds of every phase as one JSON line ({"phase_seconds": {...}}), the
 card's `nvidia-smi --query-gpu=name,power.limit` line and a JSON line
-describing the kernel, whose launches are those of the four main paths
-(phases 3, 5, 8 and 9; sublong's, cellCounts', phase 14's alignment,
-phase 15's multi-device paths and phase 16's runs on the card are beside
-them under launches_by_path)
-and whose times and bound are phase 2's at the main shape: ms and
-plain_ms per call, device_ms and plain_device_ms on the card (library_ms
-is null: no single PyTorch call computes this function), then as its last
-line {"ok": true, "device": {...}}.  With no card it exits non-zero at
+describing the kernels: probe_hits, whose launches are those of the four
+main paths (phases 3, 5, 8 and 9; sublong's, cellCounts', phase 14's
+alignment, phase 15's multi-device paths and phase 16's runs on the card
+are beside them under launches_by_path) and whose times and bound are
+phase 2's at the main shape: ms and plain_ms per call, device_ms and
+plain_device_ms on the card (library_ms is null: no single PyTorch call
+computes this function); and banded_dp, with phase 11's CLI run's
+launches and its check's figures; then as its last line {"ok": true,
+"device": {...}}.  With no card it exits non-zero at
 once.
 """
 
@@ -189,6 +197,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 KERNEL_SOURCE = "subread_tpu_torch/csrc/probe_hits.cu"
 KERNEL_REPLACES = "subread_tpu/ops/pallas_probe.py:36"
+DP_SOURCE = "subread_tpu_torch/csrc/banded_dp.cu"   # replaces no TPU kernel
 # lower bounds of phases 8 (subjunc) and 9 (paired subjunc, --allJunctions),
 # set below the JAX package's figures on the same seeds (PERF.md)
 SUBJUNC_MIN = dict(mapped=0.9, spliced_share=0.8, recall=0.9, precision=0.9)
@@ -312,6 +321,43 @@ def single_end_metrics(sam, n_reads: int) -> dict:
     return dict(primary=len(primary), distinct=len({f[0] for f in primary}),
                 mapped=len(mapped) / n_reads,
                 near_truth=near / max(len(mapped), 1))
+
+
+def banded_dp_against_plain(segments):
+    """The banded_dp kernel against its plain version and banded_align on
+    segments (one chunk's stretches), op for op, or the run fails.  Returns
+    the segments, their band cells, the longest segment's rows, the
+    kernel's device ms per call (timing.device_ms: CUDA events, cold L2,
+    the uploaded batch), the bound of its traceback bytes (a byte a band
+    cell written, at 3.35 TB/s) and the device us a row of the longest
+    segment, the serial chain that bounds it."""
+    import numpy as np
+    import torch
+    from subread_tpu_torch.align.longread import banded_align
+    from subread_tpu_torch.ops import banded_dp
+    from subread_tpu_torch.timing import device_ms
+
+    got = banded_dp.refine(segments, "cuda")
+    torch.cuda.synchronize()
+    check(got == banded_dp.refine(segments, "cpu"),
+          "phase 11: the banded_dp kernel differs from its plain version")
+    check(all(ops == banded_align(r, g, extra_band=e)
+              for (r, g, e), ops in zip(segments, got)),
+          "phase 11: the banded_dp kernel differs from banded_align")
+    buf, order, n_wide, cells, slots = banded_dp.pack(segments)
+    S = len(order)
+    table = buf[: S * len(banded_dp.COLS) * 8].view(np.int64).reshape(S, -1)
+    t, r, g = banded_dp.unpack(torch.from_numpy(buf).cuda(), S, int(table[:, 2].sum()))
+    ms = device_ms(lambda: banded_dp.banded_dp(t, r, g, n_wide, cells, slots))
+    rows = int(table[:, 2].max())
+    out = dict(segments=S, wide=n_wide, cells=cells, longest_rows=rows,
+               device_ms=ms, bound_ms=cells / 3.35e12 * 1e3,
+               us_per_row=ms * 1e3 / max(rows, 1))
+    print(f"phase 11: banded_dp kernel equals its plain version and banded_align on "
+          f"{S} stretches ({n_wide} wide), {cells} band cells; {ms:.4f} ms on the "
+          f"card; traceback bytes at 3.35 TB/s {out['bound_ms']:.4f} ms; longest "
+          f"segment {rows} rows, {out['us_per_row']:.3f} us a row")
+    return out
 
 
 def launched(fn):
@@ -581,7 +627,7 @@ def main() -> int:
     from subread_tpu_torch.index.genome import Genome
     from subread_tpu_torch.io.fastq import ReadBatch, batch_from_records
     from subread_tpu_torch.io.gtf import load_annotation
-    from subread_tpu_torch.ops import probe
+    from subread_tpu_torch.ops import banded_dp, probe
     from subread_tpu_torch.ops.vote import merge_vote_results, vote_batch
     from subread_tpu_torch.parallel import distributed, index_shard
     from subread_tpu_torch.parallel import mesh as pmesh
@@ -1026,11 +1072,26 @@ def main() -> int:
             "--device", "cuda"]
     steps = [(Aligner, "submit_batch", "submit_batch"),
              (Aligner, "collect_batch", "collect_batch"),
-             (longread, "chain_read", "chain_read"),
-             (longread, "banded_align", "banded_align")]
+             (longread, "chain_reads", "chain_reads"),
+             (banded_dp, "refine", "banded_dp.refine")]
+    # the chunk with the most stretches, for the kernel's own check below
+    jobs11 = []
+
+    def keep_largest(segments, device):
+        if len(segments) > len(jobs11):
+            jobs11[:] = segments
+        return refine(segments, device)
+
+    banded_dp.banded_dp.launches = 0
     with host_seconds(steps) as secs11:
-        run, launches["sublong (phase 11)"] = launched(lambda: sublong_cli.run_sublong(
-            sublong_cli.build_parser().parse_args(argv)))
+        refine = banded_dp.refine
+        banded_dp.refine = keep_largest
+        try:
+            run, launches["sublong (phase 11)"] = launched(lambda: sublong_cli.run_sublong(
+                sublong_cli.build_parser().parse_args(argv)))
+        finally:
+            banded_dp.refine = refine
+    dp_launches = banded_dp.banded_dp.launches
     m11 = long_read_metrics(sam11, len(lr))
     check(m11["records"] == len(lr) and run["total"] == len(lr),
           f"phase 11: {m11['records']} records for {len(lr)} long reads")
@@ -1038,11 +1099,13 @@ def main() -> int:
         check(m11[k] >= lo, f"phase 11: {k} {m11[k]:.4f} < {lo}")
     check(launches["sublong (phase 11)"] > 0,
           "sublong never launched the probe_hits kernel")
+    check(dp_launches > 0 and jobs11, "sublong never launched the banded_dp kernel")
     print(f"phase 11: {len(lr)} long reads, mapped {m11['mapped']:.4f}, "
           f"{m11['near_truth']:.4f} of them within 1200 bp of the truth, "
           f"{m11['deletions']:.4f} of {m11['planted']} planted 300-base "
           f"deletions as a D or N >= 250; "
-          f"{launches['sublong (phase 11)']} kernel launches; "
+          f"{launches['sublong (phase 11)']} probe_hits and {dp_launches} "
+          f"banded_dp launches; "
           f"{len(lr) / run['time_map']:.1f} reads/s, "
           f"{n_win / run['time_map']:.1f} windows/s over sublong_file "
           f"({run['time_map']:.2f}s; index load and upload "
@@ -1064,6 +1127,8 @@ def main() -> int:
     max_err = max(max_err, err11)
     del al11
     torch.cuda.empty_cache()
+    dp11 = banded_dp_against_plain(jobs11)
+    dp11["launches"] = dp_launches
     n11 = min(25, len(lr))
     fq11h = work / "long25.fq"
     head_fastq(fq11, fq11h, n11)
@@ -1079,6 +1144,7 @@ def main() -> int:
                                   str(fq11h), str(outs[d]), sam_output=True)
             print(f"phase 11: {n11} long reads {' '.join(rna)} on {d} in "
                   f"{time.time() - t:.1f}s")
+        # the CPU refines with banded_dp's plain version, the card with the kernel
         check(sam_records(outs["cpu"]) == sam_records(outs["cuda"]),
               f"phase 11: SAM records {' '.join(rna)} differ between cpu and cuda")
         print(f"phase 11: cpu and cuda agree on {len(sam_records(outs['cpu']))} "
@@ -1579,6 +1645,14 @@ def main() -> int:
         "max_abs_err": max_err, "ms": ms_k, "plain_ms": ms_r,
         "device_ms": dev_k, "plain_device_ms": dev_r,
         "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+    }, {
+        "name": "banded_dp", "route": "cuda", "source": DP_SOURCE,
+        "replaces": None, "launches": dp11["launches"],
+        "device_ms": dp11["device_ms"], "bound_ms": dp11["bound_ms"],
+        "bound_by": "the longest segment's rows, one after another",
+        "segments": dp11["segments"], "wide": dp11["wide"],
+        "cells": dp11["cells"], "longest_rows": dp11["longest_rows"],
+        "us_per_row": dp11["us_per_row"], "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -6,20 +6,33 @@ Departures that leave every hit and record as the original's:
 `window_batch` builds the window batch from the reads' codes (the original
 decodes each window to text and parses it back); `sublong_file` takes
 `reader=` as `Aligner.align_file` does and otherwise reads through the
-port's `FastqReader` (the original parses the file itself); and the steps
-report `timing` spans and counters:
+port's `FastqReader` (the original parses the file itself); chaining runs
+in three steps, for a whole chunk at once (`chain_reads`; `chain_read` is
+its one-read case): each read's winning chain is chosen first
+(`_select_chain`: the winner depends on its windows and votes, never on its
+CIGAR, so only the winner's CIGAR is built) and planned (`_plan_cigar`:
+the coarse blocks and the stretches to refine, which depend on the chain
+alone), then every stretch of the chunk is refined in one batched call
+(`ops.banded_dp.refine`: the CUDA kernel on a card, its plain PyTorch
+version on the CPU, each giving `banded_align`'s operations op for op;
+`banded_align` itself stays as the numpy oracle), then each CIGAR is
+assembled (`_assemble_cigar`) as the original's `_chain_to_cigar` merges
+and balances it; and the steps report `timing` spans and counters:
 
   * `sublong.read`: a reader call, bytes to codes;
   * `sublong.windows`: cutting a chunk's reads into windows (`window_batch`);
   * `sublong.align`: `align_batch` on the windows (`submit`, `collect`);
-  * `sublong.chain`: `chain_read` on the chunk's reads, with a child
-    `sublong.dp` for each `banded_align` call;
+  * `sublong.chain`: chaining the chunk's reads, with one child
+    `sublong.dp` for the chunk's batched refinement (pack, upload, the
+    launch, download, decode: the span waits for the card, since the
+    assembly needs the operations);
   * `sublong.emit`: building and writing the records, the BAM's close
     included (`bgzf.deflate`);
 
 and, per chunk while a profiler records, the counters `sublong.windows`
-(windows voted) and `sublong.bases` (read bases), and per `banded_align`
-call `sublong.dp_cells` (the cells of its band).
+(windows voted) and `sublong.bases` (read bases), and per refinement call
+`sublong.dp_cells` (the band cells of its stretches, as `banded_align`
+would fill them) and `sublong.dp_jobs` (the stretches it refines).
 
 sublong: long-read mapping by windowed voting + chain consensus.
 
@@ -136,34 +149,34 @@ def banded_align(read_seg: np.ndarray, gen_seg: np.ndarray,
     return out
 
 
-def _band_cells(n: int, m: int, extra_band: int) -> int:
-    """The cells banded_align fills for a read segment of n bases against
-    m genome bases: rows 1..n, each from max(1, i - band) to min(m, i +
-    band), band = |n - m| + extra_band."""
-    if n == 0 or m == 0:
-        return 0
-    band = abs(n - m) + extra_band
-    i = np.arange(1, n + 1)
-    return int(np.maximum(np.minimum(m, i + band) - np.maximum(1, i - band) + 1,
-                          0).sum())
+def _refine(jobs: list, device) -> list:
+    """Each job's banded_align operations, all jobs in one `ops.banded_dp`
+    call on device (the CUDA kernel on a card, its plain version on the
+    CPU), in a sublong.dp span that waits for the card; while a profiler
+    records, their band cells are counted as sublong.dp_cells and the jobs
+    as sublong.dp_jobs.  jobs: (read codes, genome codes, extra band)."""
+    if not jobs:
+        return []
+    from ..ops import banded_dp
 
-
-def _refine(read_seg: np.ndarray, gen_seg: np.ndarray, extra_band: int):
-    """banded_align in a sublong.dp span, its cells counted as
-    sublong.dp_cells while a profiler records."""
     with timing.span("sublong.dp"):
-        ops = banded_align(read_seg, gen_seg, extra_band=extra_band)
+        ops = banded_dp.refine(jobs, device)
     if timing.recording():
+        n = np.asarray([len(r) for r, _, _ in jobs], np.int64)
+        m = np.asarray([len(g) for _, g, _ in jobs], np.int64)
+        extra = np.asarray([e for _, _, e in jobs], np.int64)
         timing.count("sublong.dp_cells",
-                     _band_cells(len(read_seg), len(gen_seg), extra_band))
+                     int(banded_dp.band_cells(n, m, np.abs(n - m) + extra).sum()))
+        timing.count("sublong.dp_jobs", len(jobs))
     return ops
 
 
-def _chain_to_cigar(wins: np.ndarray, gpos: np.ndarray, L: int, strand: int,
-                    oriented: np.ndarray | None = None,
-                    gcodes: np.ndarray | None = None,
-                    max_refine: int = 4000):
-    """CIGAR ops for one chained window set.
+def _plan_cigar(wins: np.ndarray, gpos: np.ndarray, L: int, strand: int,
+                oriented: np.ndarray | None, gcodes: np.ndarray | None,
+                jobs: list, max_refine: int = 4000):
+    """The CIGAR plan of one chained window set: its pieces in SAM (genome)
+    orientation, each an (n, op) or the index in jobs of a stretch to
+    refine, appended there as (read codes, genome codes, extra band).
 
     wins: window indices (fwd-read numbering), gpos: genome start of each
     window's 100bp block.  For strand 1 the blocks are emitted in genome
@@ -172,8 +185,10 @@ def _chain_to_cigar(wins: np.ndarray, gpos: np.ndarray, L: int, strand: int,
     (genome 2-bit codes, linear coords) the inter-anchor gaps get
     base-accurate banded-DP ops instead of coarse min(dr,dg)M+diff
     blocks — the reference's between-anchor iterative refinement
-    (longread-one/longread-mapping.c:529-660).  Returns (clip_left, ops,
-    clip_right, genome_pos) in SAM (genome) orientation."""
+    (longread-one/longread-mapping.c:529-660).  Whether a stretch is
+    refined depends on the chain alone, never on an earlier stretch's
+    operations, so a chunk's stretches are all known before any DP runs.
+    Returns (pieces, w, g) with w and g in genome order."""
     order = np.argsort(gpos)
     w = wins[order]
     g = gpos[order]
@@ -183,7 +198,14 @@ def _chain_to_cigar(wins: np.ndarray, gpos: np.ndarray, L: int, strand: int,
         (lambda wi: wi * WINDOW) if strand == 0
         else (lambda wi: L - (wi + 1) * WINDOW)
     )
-    ops: list[tuple[int, str]] = [(WINDOW, "M")]
+
+    def refine(o_lo, o_hi, g_lo, g_hi):
+        ops.pop()          # the coarse body block being replaced
+        ops.append(len(jobs))
+        jobs.append((oriented[o_lo:o_hi], gcodes[g_lo:g_hi], 40))
+        ops.append((WINDOW, "M"))
+
+    ops: list = [(WINDOW, "M")]
     for i in range(1, n):
         # read distance between consecutive blocks, in genome orientation
         dw = abs(int(w[i]) - int(w[i - 1])) - 1
@@ -207,9 +229,7 @@ def _chain_to_cigar(wins: np.ndarray, gpos: np.ndarray, L: int, strand: int,
                     and 0 <= g_lo < g_hi <= len(gcodes)
                     and ops and ops[-1] == (WINDOW, "M")
                 ):
-                    ops.pop()
-                    ops.extend(_refine(oriented[o_lo:o_hi], gcodes[g_lo:g_hi], 40))
-                    ops.append((WINDOW, "M"))
+                    refine(o_lo, o_hi, g_lo, g_hi)
                     continue
             gm = max(WINDOW + dg, 1)
             rm = WINDOW + dr
@@ -259,9 +279,7 @@ def _chain_to_cigar(wins: np.ndarray, gpos: np.ndarray, L: int, strand: int,
                 0 <= o_lo < o_hi <= len(oriented) and g_hi <= len(gcodes)
                 and ops and ops[-1] == (WINDOW, "M")
             ):
-                ops.pop()          # the coarse body block being replaced
-                ops.extend(_refine(oriented[o_lo:o_hi], gcodes[g_lo:g_hi], 40))
-                ops.append((WINDOW, "M"))
+                refine(o_lo, o_hi, g_lo, g_hi)
                 continue
         m = min(dr, dg)
         if m:
@@ -271,13 +289,23 @@ def _chain_to_cigar(wins: np.ndarray, gpos: np.ndarray, L: int, strand: int,
         elif dr > dg:
             ops.append((dr - dg, "I"))
         ops.append((WINDOW, "M"))
+    return ops, w, g
+
+
+def _assemble_cigar(plan, L: int, strand: int, seg_ops: list):
+    """The CIGAR of a `_plan_cigar` plan, each refined stretch's
+    operations (seg_ops, by job) spliced in: adjacent equal operations
+    merged, the clips, and the read bases balanced.  Returns (clip_left,
+    ops, clip_right, genome_pos) in SAM (genome) orientation."""
+    pieces, w, g = plan
     # merge adjacent Ms
     merged: list[tuple[int, str]] = []
-    for nn, op in ops:
-        if merged and merged[-1][1] == op:
-            merged[-1] = (merged[-1][0] + nn, op)
-        else:
-            merged.append((nn, op))
+    for piece in pieces:
+        for nn, op in (seg_ops[piece] if isinstance(piece, int) else (piece,)):
+            if merged and merged[-1][1] == op:
+                merged[-1] = (merged[-1][0] + nn, op)
+            else:
+                merged.append((nn, op))
     wmin, wmax = int(w.min()), int(w.max())
     if strand == 0:
         clip_l = wmin * WINDOW
@@ -314,14 +342,14 @@ def _chain_to_cigar(wins: np.ndarray, gpos: np.ndarray, L: int, strand: int,
     return clip_l, merged, clip_r, int(g[0])
 
 
-def chain_read(
-    res: dict, rows: np.ndarray, wins: np.ndarray, L: int, min_windows: int,
-    codes: np.ndarray | None = None, gcodes: np.ndarray | None = None,
-) -> LongReadHit:
-    """Chain the mapped windows (batch rows `rows`, window ids `wins`) of
-    one read into the best diagonal cluster.  With codes/gcodes the
-    inter-anchor gaps are refined by banded DP (see _chain_to_cigar)."""
-    best = LongReadHit(mapped=False)
+def _select_chain(res: dict, rows: np.ndarray, wins: np.ndarray,
+                  min_windows: int):
+    """The winning diagonal cluster of one read's mapped windows (batch
+    rows `rows`, window ids `wins`): (strand, its windows' ids, their
+    genome positions, n_windows, votes), or None.  The winner depends on
+    n_windows (after the drift filter) and the votes alone, never on the
+    CIGAR, so only the winner's CIGAR is built."""
+    best = None
     mapped = np.asarray(res["mapped"], bool)[rows]
     if not mapped.any():
         return best
@@ -358,8 +386,8 @@ def chain_read(
             n_windows = len(uw)
             vsum = int(varr[members].sum())
             if n_windows >= min_windows and (
-                not best.mapped or n_windows > best.n_windows
-                or (n_windows == best.n_windows and vsum > best.votes)
+                best is None or n_windows > best[3]
+                or (n_windows == best[3] and vsum > best[4])
             ):
                 midx = np.asarray(sorted(uw.values()))
                 # local drift consistency: ONT-style indel drift moves the
@@ -378,21 +406,68 @@ def chain_read(
                     if keep.sum() >= min_windows:
                         midx = midx[keep]
                         n_windows = len(midx)
-                oriented = None
-                if codes is not None:
-                    oriented = codes if st == 0 else dna.revcomp(codes)
-                cl, ops, cr, gpos0 = _chain_to_cigar(
-                    warr[midx], parr[midx], L, st,
-                    oriented=oriented, gcodes=gcodes,
-                )
-                span = sum(nn for nn, op in ops if op in "MDN")
-                best = LongReadHit(
-                    mapped=True, pos=gpos0, strand=st,
-                    clip_left=cl, clip_right=cr, cigar_ops=ops,
-                    span=span, n_windows=n_windows, votes=vsum,
-                )
+                best = (st, warr[midx], parr[midx], n_windows, vsum)
             i = j
     return best
+
+
+def _plan_read(res: dict, rows: np.ndarray, wins: np.ndarray, L: int,
+               min_windows: int, codes, gcodes, jobs: list):
+    """One read's chain and CIGAR plan (its stretches to refine appended
+    to jobs): (strand, plan, n_windows, votes), or None."""
+    sel = _select_chain(res, rows, wins, min_windows)
+    if sel is None:
+        return None
+    st, w, p, n_windows, vsum = sel
+    oriented = None
+    if codes is not None:
+        oriented = codes if st == 0 else dna.revcomp(codes)
+    return st, _plan_cigar(w, p, L, st, oriented, gcodes, jobs), n_windows, vsum
+
+
+def _assemble_read(planned, L: int, seg_ops: list) -> LongReadHit:
+    """The hit of a `_plan_read` result, the refined stretches' operations
+    spliced in."""
+    if planned is None:
+        return LongReadHit(mapped=False)
+    st, plan, n_windows, vsum = planned
+    cl, ops, cr, gpos0 = _assemble_cigar(plan, L, st, seg_ops)
+    span = sum(nn for nn, op in ops if op in "MDN")
+    return LongReadHit(
+        mapped=True, pos=gpos0, strand=st,
+        clip_left=cl, clip_right=cr, cigar_ops=ops,
+        span=span, n_windows=n_windows, votes=vsum,
+    )
+
+
+def chain_reads(res: dict, spans: list, reads: list, min_windows: int,
+                gcodes: np.ndarray | None = None, device="cpu") -> list:
+    """Chain many reads' mapped windows: plan every read, refine all their
+    stretches in one batched call on device, then assemble each hit.
+    spans: each read's (batch rows, window ids); reads: each read's codes;
+    without gcodes the gaps keep their coarse blocks."""
+    jobs: list = []
+    plans = [
+        _plan_read(res, rows, wins, len(codes), min_windows,
+                   codes if gcodes is not None else None, gcodes, jobs)
+        for (rows, wins), codes in zip(spans, reads)
+    ]
+    seg_ops = _refine(jobs, device)
+    return [_assemble_read(p, len(c), seg_ops) for p, c in zip(plans, reads)]
+
+
+def chain_read(
+    res: dict, rows: np.ndarray, wins: np.ndarray, L: int, min_windows: int,
+    codes: np.ndarray | None = None, gcodes: np.ndarray | None = None,
+) -> LongReadHit:
+    """Chain the mapped windows (batch rows `rows`, window ids `wins`) of
+    one read into the best diagonal cluster.  With codes/gcodes the
+    inter-anchor gaps are refined by banded DP (see _plan_cigar) on the
+    CPU: `chain_reads`' steps for one read."""
+    jobs: list = []
+    planned = _plan_read(res, rows, wins, L, min_windows,
+                         codes if gcodes is not None else None, gcodes, jobs)
+    return _assemble_read(planned, L, _refine(jobs, "cpu"))
 
 
 def map_long_read(aligner, seq_codes: np.ndarray, min_windows: int = 2) -> LongReadHit:
@@ -437,14 +512,12 @@ def map_long_reads(
         res = aligner.align_batch(batch)
     with timing.span("sublong.chain"):
         ends = np.cumsum(np.bincount(owner, minlength=len(reads)))
-        out = []
-        for r, codes in enumerate(reads):
+        spans = []
+        for r in range(len(reads)):
             rows = np.arange(ends[r - 1] if r else 0, ends[r])
-            out.append(
-                chain_read(res, rows, winid[rows], len(codes), min_windows,
-                           codes=codes, gcodes=aligner.genome.codes)
-            )
-    return out
+            spans.append((rows, winid[rows]))
+        return chain_reads(res, spans, reads, min_windows,
+                           gcodes=aligner.genome.codes, device=aligner.device)
 
 
 def map_long_reads_sharded(
@@ -482,14 +555,10 @@ def map_long_reads_sharded(
     # same wide-gather re-vote the single-chip align_batch applies to
     # saturated repeat windows — keeps mesh results bit-identical to it
     aligner._rescue_saturated(batch, res)
-    return [
-        chain_read(
-            res, np.flatnonzero(owner == r), winid[np.flatnonzero(owner == r)],
-            len(codes), min_windows,
-            codes=codes, gcodes=aligner.genome.codes,
-        )
-        for r, codes in enumerate(reads)
-    ]
+    spans = [(np.flatnonzero(owner == r), winid[np.flatnonzero(owner == r)])
+             for r in range(len(reads))]
+    return chain_reads(res, spans, reads, min_windows,
+                       gcodes=aligner.genome.codes, device=aligner.device)
 
 
 # reads a reader call hands over: about half a chunk's windows at Nanopore

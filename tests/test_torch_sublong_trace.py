@@ -4,10 +4,12 @@
     reads a call) it writes the BAM it writes without one, byte for byte;
   * outside a profiler session nothing is listed and the span totals
     grow; inside one, each chunk gives sublong.windows, sublong.align
-    (holding submit and collect), sublong.chain (holding a sublong.dp for
-    each banded_align call) and sublong.emit (holding the deflates) spans,
-    the reader's calls sublong.read spans, and the counters add up to the
-    windows, bases and band cells of the reads fed;
+    (holding submit and collect), sublong.chain (holding one sublong.dp,
+    the chunk's batched refinement, where the chunk has stretches to
+    refine) and sublong.emit (holding the deflates) spans, the reader's
+    calls sublong.read spans, and the counters add up to the windows and
+    bases of the reads fed, with one sublong.dp_cells and one
+    sublong.dp_jobs count a refinement;
   * the BAM is the same bytes with and without recording."""
 
 import dataclasses
@@ -119,3 +121,8 @@ def test_spans_and_counters_of_a_profiled_run(setup, monkeypatch):
     assert total("sublong.bases") == int(lens.sum())
     cells = [c.value for c in timing.counters() if c.name == "sublong.dp_cells"]
     assert len(cells) == len(by["sublong.dp"]) and min(cells) > 0
+    jobs = [c.value for c in timing.counters() if c.name == "sublong.dp_jobs"]
+    assert len(jobs) == len(by["sublong.dp"]) and min(jobs) > 0
+    # one refinement a chunk at most
+    assert len(by["sublong.dp"]) <= len(chunks)
+    assert len({s.chunk for s in by["sublong.dp"]}) == len(by["sublong.dp"])
