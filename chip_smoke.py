@@ -965,9 +965,9 @@ def main() -> int:
                     sp.quals[:bs], sp.ambig[:bs])
     res8 = al8.align_batch(sub)
     table = {k: (0, 0, 0) for k in bed_junctions(str(sam8) + ".junction.bed")}
-    ev_l, ev_r, al8._ev_donor = junction_event_arrays(genome, table)
+    ev_l, ev_r, donor = junction_event_arrays(genome, table)
     rwe_ev, rwe_wall = stage_ms(
-        lambda: al8.rescue_with_events(sub, res8, ev_l, ev_r), 5)
+        lambda: al8.rescue_with_events(sub, res8, ev_l, ev_r, donor), 5)
     print(f"phase 8: one {bs}-read sub-batch, medians of the same timed calls "
           f"(CUDA events / host clock to a synchronise): _select_se_junc "
           f"{sel_ev:.4f} / {sel_wall:.4f} ms, whole _device_align "

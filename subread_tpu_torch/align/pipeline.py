@@ -8,22 +8,24 @@ rescue step) run as torch ops on the Aligner's device, with the hit gather
 in the CUDA kernel `ops.probe.probe_hits` on a card.  Each chunk is split
 into `batch_reads` sub-batches; `submit_batch`/`submit_batch_pe` queue
 every sub-batch's work and `collect_batch`/`collect_batch_pe` read the
-results back, so the work of chunk N+1 is queued before chunk N is read.
+results back.
 
-The host side (align_file, align_file_pe, SAM emission, indel-event
-placement, multi-indel refinement, the long-indel rescue for -I > 16, the
-junction tables, the event-table rescue's accept rules, junction chaining,
-fusion breakpoints) is a copy of the JAX package's, not an import:
-the port imports nothing of the JAX package.  Only the imports changed,
-to the port's own copies of the host modules (dna, config, index, io,
-native).
+align_file and align_file_pe share one chunk loop, `_align_chunks`, which
+queues chunk N+1 before it reads chunk N back, runs the chunk's host step
+(`_host_step_se`, `_host_step_pe`: indel-event placement, multi-indel
+refinement, the long-indel rescue for -I > 16, the junction tables, the
+event-table rescue, junction chaining, fusion breakpoints, then the
+records) and keeps what chunks share in one `_ChunkTables` per call.  The
+host side follows the JAX package's rules without importing it; its
+outputs are held byte-equal to the JAX package's by the `*_matches_jax`
+tests, over several chunks by tests/test_torch_chunks.py.
 """
 
 from __future__ import annotations
 
 import functools
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -44,6 +46,11 @@ from ..ops.junction import (
 from ..ops.vote import (
     VoteParams, VoteResult, merge_vote_results, static_offsets, vote_batch,
 )
+# indelevent's functions are called through the module, so that a wrapper
+# set on one of its attributes (the benchmark's spans, a test's spy) runs
+from . import indelevent
+from .fusion import accumulate_breakpoints, detect_fusion_pairs, write_breakpoints_vcf
+from .longindel import assemble_insertion_piles, rescue_long_indels
 
 # collect_batch hands the host the dict the JAX pipeline's collect_batch
 # does.  There, a sub-batch's probe_kv rows travel compacted: the rows of
@@ -146,8 +153,7 @@ def write_indel_vcf(path: str, genome: Genome, indels: dict) -> None:
 
 
 # The junction-table helpers below, collect_junctions to
-# write_junction_bed, are copies of the JAX package's host functions, for
-# the reason the module docstring gives.
+# write_junction_bed, follow the JAX package's host functions rule for rule.
 
 def collect_junctions(res: dict, batch, genome, table: dict,
                       mask: np.ndarray | None = None) -> dict | None:
@@ -358,12 +364,76 @@ def _add_indel_event(indel_events: dict | None, batch, res: dict, i: int,
     if indel_events is None or i in (res.get("_events_done") or ()):
         return
     sp = int(res["split"][i])
-    codes = batch.codes[i, : int(batch.lengths[i])]
-    seq = dna.decode(dna.revcomp(codes) if int(res["strand"][i]) == 1 else codes)
+    seq, _ = _seq_qual(batch, i, int(res["strand"][i]) == 1)
     ins_seq = seq[sp : sp - iv] if iv < 0 else ""
-    key = (int(ci), int(co) + sp - 1, iv)
-    sup, prev = indel_events.get(key, (0, ins_seq))
-    indel_events[key] = (sup + 1, prev)
+    _count_events(indel_events, [((int(ci), int(co) + sp - 1, iv), (1, ins_seq))])
+
+
+def _count_events(indel_events: dict, events) -> None:
+    """Add events, (key, (reads, inserted bases)) pairs keyed (contig, last
+    base before the indel, length), to indel_events; a key keeps the
+    inserted bases it was first counted with."""
+    for k, (sup, ins) in events:
+        s0, p0 = indel_events.get(k, (0, ins))
+        indel_events[k] = (s0 + sup, p0)
+
+
+def _seq_qual(batch, i: int, reverse: bool) -> tuple[str, str]:
+    """Read i's SEQ and QUAL text as its record gives them: the read's own,
+    or reverse-complemented and reversed for a reverse-strand record."""
+    L = int(batch.lengths[i])
+    codes = batch.codes[i, :L]
+    qual = batch.quals[i, :L].tobytes().decode()
+    if reverse:
+        return dna.decode(dna.revcomp(codes)), qual[::-1]
+    return dna.decode(codes), qual
+
+
+def _cigar_text(L: int, clip_l: int, clip_r: int, split: int, indel: int,
+                gap: int | None) -> str:
+    """A record's CIGAR from its row: soft clips around a junction (gap not
+    None: split bases, then the gap, counted from the clipped head), a
+    deletion (indel > 0) or an insertion (indel < 0) after the split-th base
+    of the read, or one match run."""
+    if gap is not None:
+        mid = f"{split}M{gap}N{L - clip_l - split - clip_r}M"
+    elif indel > 0:
+        mid = f"{split - clip_l}M{indel}D{L - split - clip_r}M"
+    elif indel < 0:
+        mid = f"{split - clip_l}M{-indel}I{L - split + indel - clip_r}M"
+    else:
+        mid = f"{L - clip_l - clip_r}M"
+    return (f"{clip_l}S" if clip_l else "") + mid + (f"{clip_r}S" if clip_r else "")
+
+
+def _merge_overrides(res: dict, ov: dict, keep_earlier: bool) -> None:
+    """Merge a host rescue's records, {row: (cigar, mismatches, nm)}, into
+    res["cigar_override"] (over earlier ones, or under them with
+    keep_earlier) and take their mismatches into res["mism"]."""
+    cur = res.get("cigar_override") or {}
+    for i, v in ov.items():
+        if keep_earlier:
+            cur.setdefault(i, v)
+        else:
+            cur[i] = v
+    res["cigar_override"] = cur
+    res["mism"] = np.asarray(res["mism"], np.int32).copy()
+    for i, (_c, mm, _nm) in ov.items():
+        res["mism"][i] = mm
+
+
+@dataclass
+class _ChunkTables:
+    """What the chunks of one align_file or align_file_pe call share, made
+    afresh for each call: the junction table (subjunc, --sv; else None)
+    with the seed junctions pending support, the fusion breakpoints
+    (--allJunctions; else None), the indel events and the long-insertion
+    piles (-I > 16)."""
+    junctions: dict | None
+    breakpoints: dict | None
+    seed_pending: dict = field(default_factory=dict)
+    indel_events: dict = field(default_factory=dict)
+    ins_piles: dict = field(default_factory=dict)
 
 
 def uniform_length(lens: np.ndarray) -> int | None:
@@ -387,6 +457,9 @@ class Aligner:
         self.genome = genome
         self.index = self.blocks[0]
         self.cfg = cfg
+        # -a's known junctions (the CLI sets them): with the junctions found
+        # so far, the event table of subjunc's rescue
+        self.annot_junctions: dict | None = None
         # vote, rescue-width and rescue-tier parameters exactly as the JAX
         # Aligner (subread_tpu/align/pipeline.py:350-439), whose comments
         # give the measurements behind each value
@@ -1332,16 +1405,19 @@ class Aligner:
         return {k: _host(k, t) for k, t in rj.items()}
 
     # The host methods below, rescue_with_events to chain_clipped_junctions,
-    # are copies of the JAX package's (the module docstring says why); the
-    # rescue's device step is _junction_rescue_step.
+    # follow the JAX package's rule for rule; the rescue's device step is
+    # _junction_rescue_step.
 
     @timing.span("junction")
     def rescue_with_events(self, batch: ReadBatch, res: dict,
-                           ev_left: np.ndarray, ev_right: np.ndarray) -> dict:
+                           ev_left: np.ndarray, ev_right: np.ndarray,
+                           ev_donor: dict | None = None) -> dict:
         """Scan-2 event-table sharing (explain_read, core-junction.c:2617):
         re-explain every anchored read against the global junction table;
         a table junction that explains the read with fewer mismatches (or
-        rescues an unmapped read) replaces the plain alignment."""
+        rescues an unmapped read) replaces the plain alignment.  ev_donor,
+        {(left, right): donor strand} of the table's events, gives a
+        rescued read its donor strand."""
         cfg = self.cfg
         if len(ev_left) == 0 or "junc" not in res:
             return res
@@ -1508,12 +1584,12 @@ class Aligner:
             out["clip_l"] = np.where(accept, rj["clip_l"], res["clip_l"])
             out["clip_r"] = np.where(accept, rj["clip_r"], res["clip_r"])
         # donor strand of a rescued read comes from the event table
-        if "junc_donor_strand" in res and hasattr(self, "_ev_donor"):
+        if "junc_donor_strand" in res and ev_donor is not None:
             le = out["pos"].astype(np.int64) + out["split"].astype(np.int64) - 1
             re_ = le + out["junc_gap"].astype(np.int64) + 1
             ds = out["junc_donor_strand"].copy()
             for i in np.flatnonzero(accept):
-                ds[i] = self._ev_donor.get((int(le[i]), int(re_[i])), 0)
+                ds[i] = ev_donor.get((int(le[i]), int(re_[i])), 0)
             out["junc_donor_strand"] = ds
         return out
 
@@ -1706,19 +1782,8 @@ class Aligner:
             off_i = int(off2[0])
             if off_i < 0 or off_i >= int(g.lengths[int(ci2[0])]):
                 continue
-            seq_codes = batch.codes[i, :L]
-            qual = batch.quals[i, :L].tobytes().decode()
-            if st == 1:
-                seq = dna.decode(dna.revcomp(seq_codes))
-                qual = qual[::-1]
-            else:
-                seq = dna.decode(seq_codes)
-            if indel > 0:
-                cigar = f"{split}M{indel}D{L - split}M"
-            elif indel < 0:
-                cigar = f"{split}M{-indel}I{L - split + indel}M"
-            else:
-                cigar = f"{L}M"
+            seq, qual = _seq_qual(batch, i, st == 1)
+            cigar = _cigar_text(L, 0, 0, split, indel, None)
             flag = (samio.FLAG_REVERSE if st else 0) | (0x100 if hi else 0)
             recs.append(samio.SamRecord(
                 batch.names[i], flag, g.names[int(ci2[0])], off_i + 1,
@@ -1855,14 +1920,7 @@ class Aligner:
             for i, (cigar, _mism, nm_i) in sorted(overrides.items()):
                 if multi_out[i]:
                     continue
-                L = int(batch.lengths[i])
-                seq_codes = batch.codes[i, :L]
-                qual = batch.quals[i, :L].tobytes().decode()
-                if int(res["strand"][i]) == 1:
-                    seq = dna.decode(dna.revcomp(seq_codes))
-                    qual = qual[::-1]
-                else:
-                    seq = dna.decode(seq_codes)
+                seq, qual = _seq_qual(batch, i, int(res["strand"][i]) == 1)
                 writer.write(samio.SamRecord(
                     batch.names[i], int(cols["flags"][i]),
                     self.genome.names[int(cols["cidx"][i])],
@@ -1915,16 +1973,13 @@ class Aligner:
         if not self.cfg.report_multi_mapping and self.cfg.multi_best <= 1:
             # -u: multi-mapping reads are reported unmapped (-B N overrides)
             mapped = mapped & ~np.asarray(res["multi"], bool)
+        z = np.zeros(len(batch), np.int32)
+        clip_l, clip_r = res.get("clip_l", z), res.get("clip_r", z)
+        junc = np.asarray(res.get("junc", z), bool)
         for i, name in enumerate(batch.names):
             L = int(batch.lengths[i])
             strand = int(res["strand"][i])
-            seq_codes = batch.codes[i, :L]
-            qual = batch.quals[i, :L].tobytes().decode()
-            if strand == 1 and mapped[i]:
-                seq = dna.decode(dna.revcomp(seq_codes))
-                qual = qual[::-1]
-            else:
-                seq = dna.decode(seq_codes)
+            seq, qual = _seq_qual(batch, i, strand == 1 and mapped[i])
             summary.total += 1
             if not mapped[i]:
                 summary.unmapped += 1
@@ -1960,77 +2015,45 @@ class Aligner:
                     )
                 )
                 continue
-            if res.get("junc") is not None and res["junc"][i]:
-                gap = int(res["junc_gap"][i])
-                jcl = int(res.get("clip_l", np.zeros(1, np.int32))[i]) if "clip_l" in res else 0
-                jcr = int(res.get("clip_r", np.zeros(1, np.int32))[i]) if "clip_r" in res else 0
-                tail_m = L - jcl - split - jcr
-                cigar = (
-                    (f"{jcl}S" if jcl else "")
-                    + f"{split}M{gap}N{tail_m}M"
-                    + (f"{jcr}S" if jcr else "")
-                )
+            cl, cr = int(clip_l[i]), int(clip_r[i])
+            gap = int(res["junc_gap"][i]) if junc[i] else None
+            if gap is not None:
                 if junctions is not None:
+                    # the single-end junction count: (contig, left edge,
+                    # right edge, donor strand) -> (reads, flanks)
                     p0 = int(coff[i])  # 0-based contig pos
-                    left_edge = p0 + split - 1
-                    right_edge = p0 + split + gap
                     key = (
-                        g.names[int(cidx[i])], left_edge, right_edge,
+                        g.names[int(cidx[i])], p0 + split - 1, p0 + split + gap,
                         int(res["junc_donor_strand"][i]),
                     )
                     sup, ml, mr = junctions.get(key, (0, 0, 0))
                     junctions[key] = (
-                        sup + 1, max(ml, split), max(mr, tail_m)
+                        sup + 1, max(ml, split), max(mr, L - cl - split - cr)
                     )
-            elif indel > 0:
-                cl = int(res["clip_l"][i]) if "clip_l" in res else 0
-                cr = int(res["clip_r"][i]) if "clip_r" in res else 0
-                cigar = (
-                    (f"{cl}S" if cl else "")
-                    + f"{split - cl}M{indel}D{L - split - cr}M"
-                    + (f"{cr}S" if cr else "")
-                )
+            elif indel != 0:
                 summary.indels += 1
-            elif indel < 0:
-                ins = -indel
-                cl = int(res["clip_l"][i]) if "clip_l" in res else 0
-                cr = int(res["clip_r"][i]) if "clip_r" in res else 0
-                cigar = (
-                    (f"{cl}S" if cl else "")
-                    + f"{split - cl}M{ins}I{L - split - ins - cr}M"
-                    + (f"{cr}S" if cr else "")
-                )
-                summary.indels += 1
-            else:
-                cl = int(res.get("clip_l", np.zeros(1, np.int32))[i]) if "clip_l" in res else 0
-                cr = int(res.get("clip_r", np.zeros(1, np.int32))[i]) if "clip_r" in res else 0
-                mid = L - cl - cr
-                if (0 < self.cfg.min_mapped_length > mid) or (
-                    0 < self.cfg.min_mapped_fraction
-                    and mid * 100 < self.cfg.min_mapped_fraction * L
-                ):
-                    # --minMappedLength / --minMappedFraction:
-                    # too few mapped bases -> unmapped
-                    summary.mapped -= 1
-                    summary.unmapped += 1
-                    if res["multi"][i]:
-                        summary.multi -= 1
-                    else:
-                        summary.unique -= 1
-                    if not self.cfg.ignore_unmapped:
-                        writer.write(
-                            samio.SamRecord(name, samio.FLAG_UNMAPPED, "*", 0,
-                                            0, "*", seq=seq, qual=qual)
-                        )
-                    continue
-                cigar = (f"{cl}S" if cl else "") + f"{mid}M" + (f"{cr}S" if cr else "")
-            if indel != 0 and indel_events is not None and (
-                i not in (res.get("_events_done") or ())
+            elif (0 < self.cfg.min_mapped_length > L - cl - cr) or (
+                0 < self.cfg.min_mapped_fraction
+                and (L - cl - cr) * 100 < self.cfg.min_mapped_fraction * L
             ):
-                ins_seq = seq[split : split - indel] if indel < 0 else ""
-                key = (int(cidx[i]), int(coff[i]) + split - 1, indel)
-                sup, prev = indel_events.get(key, (0, ins_seq))
-                indel_events[key] = (sup + 1, prev)
+                # --minMappedLength / --minMappedFraction:
+                # too few mapped bases -> unmapped
+                summary.mapped -= 1
+                summary.unmapped += 1
+                if res["multi"][i]:
+                    summary.multi -= 1
+                else:
+                    summary.unique -= 1
+                if not self.cfg.ignore_unmapped:
+                    writer.write(
+                        samio.SamRecord(name, samio.FLAG_UNMAPPED, "*", 0,
+                                        0, "*", seq=seq, qual=qual)
+                    )
+                continue
+            cigar = _cigar_text(L, cl, cr, split, indel, gap)
+            if indel != 0:
+                _add_indel_event(indel_events, batch, res, i, indel,
+                                 cidx[i], coff[i])
             flag = samio.FLAG_REVERSE if strand else 0
             nm = int(res["mism"][i]) + abs(indel)
             tags = ["HI:i:1", "NH:i:1"]
@@ -2045,10 +2068,9 @@ class Aligner:
                 )
             )
 
-    # The paired-end host methods below, _pe_record_fields to
-    # align_file_pe, and _calc_tlen_cigar are copies of the JAX package's
-    # (subread_tpu/align/pipeline.py), for the reason the module docstring
-    # gives; align_file_pe keeps only the non-junction body.
+    # The paired-end host methods below, _pe_record_fields to _emit_sam_pe,
+    # and _calc_tlen_cigar follow the JAX package's
+    # (subread_tpu/align/pipeline.py) rule for rule.
 
     def _pe_record_fields(self, b1, b2, res1, res2):
         """Vectorised per-record PE fields shared by the native formatter
@@ -2312,8 +2334,8 @@ class Aligner:
                  cl_a, cr_a, nm_a, mapq_a, junc_a) = m
                 flag = int(flags_a[i])
                 L = int(batch.lengths[i])
-                seq_codes = batch.codes[i, :L]
-                qual = batch.quals[i, :L].tobytes().decode()
+                # an unmapped end has no reverse flag
+                seq, qual = _seq_qual(batch, i, bool(flag & samio.FLAG_REVERSE))
                 summary.total += 1
                 # RNEXT column (codes: -1 "*", -2 "=", else contig index);
                 # printed for unmapped ends too (core.c:2140-2164)
@@ -2331,8 +2353,7 @@ class Aligner:
                     recs.append(
                         samio.SamRecord(name, flag, "*", 0, 0, "*",
                                         rnext=rnext, pnext=pnext, tlen=tlen,
-                                        seq=dna.decode(seq_codes), qual=qual,
-                                        tags=hi_nh)
+                                        seq=seq, qual=qual, tags=hi_nh)
                     )
                     continue
                 summary.mapped += 1
@@ -2340,50 +2361,16 @@ class Aligner:
                     summary.multi += 1
                 else:
                     summary.unique += 1
-                if flag & samio.FLAG_REVERSE:
-                    seq = dna.decode(dna.revcomp(seq_codes))
-                    qual = qual[::-1]
-                else:
-                    seq = dna.decode(seq_codes)
                 indel = int(indel_a[i])
-                split = int(split_a[i])
-                cl, cr, gap = int(cl_a[i]), int(cr_a[i]), int(junc_a[i])
                 override = (res.get("cigar_override") or {}).get(i)
-                if override is not None:
-                    cigar = override[0]
-                elif gap > 0:
-                    cigar = (
-                        (f"{cl}S" if cl else "")
-                        + f"{split}M{gap}N{L - cl - split - cr}M"
-                        + (f"{cr}S" if cr else "")
-                    )
-                elif indel > 0:
-                    cigar = (
-                        (f"{cl}S" if cl else "")
-                        + f"{split - cl}M{indel}D{L - split - cr}M"
-                        + (f"{cr}S" if cr else "")
-                    )
-                elif indel < 0:
-                    cigar = (
-                        (f"{cl}S" if cl else "")
-                        + f"{split - cl}M{-indel}I{L - split + indel - cr}M"
-                        + (f"{cr}S" if cr else "")
-                    )
-                else:
-                    cigar = (
-                        (f"{cl}S" if cl else "")
-                        + f"{L - cl - cr}M"
-                        + (f"{cr}S" if cr else "")
-                    )
+                gap = int(junc_a[i])
+                cigar = override[0] if override is not None else _cigar_text(
+                    L, int(cl_a[i]), int(cr_a[i]), int(split_a[i]), indel,
+                    gap if gap > 0 else None)
                 if indel != 0:
                     summary.indels += 1
-                    if indel_events is not None and (
-                        i not in (res.get("_events_done") or ())
-                    ):
-                        ins_seq = seq[split : split - indel] if indel < 0 else ""
-                        key = (int(cidx[i]), int(coff[i]) + split - 1, indel)
-                        sup, prev = indel_events.get(key, (0, ins_seq))
-                        indel_events[key] = (sup + 1, prev)
+                    _add_indel_event(indel_events, batch, res, i, indel,
+                                     cidx[i], coff[i])
                 recs.append(
                     samio.SamRecord(
                         name, flag, g.names[int(cidx[i])], int(coff[i]) + 1,
@@ -2401,18 +2388,7 @@ class Aligner:
     ) -> AlignSummary:
         """Paired-end align_file, as the JAX method; mate files of
         different lengths raise ValueError where the JAX method asserts."""
-        summary = AlignSummary()
         rd1, rd2 = readers if readers else (FastqReader(fq1), FastqReader(fq2))
-        writer = samio.make_writer(
-            out_sam, self.genome.names, [int(x) for x in self.genome.lengths],
-            sam_output=self.cfg.sam_output or out_sam.endswith(".sam"),
-            sort_by_coordinates=self.cfg.sort_by_coordinates,
-            rg_id=self.cfg.rg_id, rg_extra=list(self.cfg.rg_extra) or None,
-        )
-        junctions: dict | None = {} if self.cfg.detect_junctions else None
-        seed_pending: dict = {}
-        indel_events: dict = {}
-        breakpoints: dict | None = {} if self.cfg.all_junctions else None
 
         def read_pair():
             b1 = rd1.next_batch(chunk_reads, pad_to=self.cfg.pad_read_len)
@@ -2423,294 +2399,222 @@ class Aligner:
                 raise ValueError("mate files out of sync")
             return b1, b2
 
-        chunk = 0
-        try:
-            timing.set_chunk(chunk)
-            pair = read_pair()
-            state = self.submit_batch_pe(*pair) if pair is not None else None
-            while pair is not None:
-                # depth-1 chunk pipeline (see align_file)
-                timing.set_chunk(chunk + 1)
-                nxt = read_pair()
-                nxt_state = self.submit_batch_pe(*nxt) if nxt is not None else None
-                timing.set_chunk(chunk)
-                r1, r2 = self.collect_batch_pe(state)
-                if junctions is None:
-                    # event-table indel placement per end (same shared-event
-                    # rule as the SE path; see align_file)
-                    from .indelevent import (
-                        propose_and_apply, rescue_clipped_with_events,
-                        rescue_unmapped_mates,
-                    )
-
-                    chunk_events: dict = {}
-                    for (bb, rr) in ((pair[0], r1), (pair[1], r2)):
-                        if "probe_kv" not in rr:
-                            continue
-                        ev_new, ev_done = propose_and_apply(
-                            self.genome, bb, rr, self.cfg,
-                            anchor_mism_limit=self.cfg.max_mismatches,
-                            index_gap=self.index.index_gap,
-                        )
-                        if ev_done:
-                            rr["_events_done"] = set(ev_done)
-                        for (ss, elen), (sup, iseq) in ev_new.items():
-                            chunk_events[(int(ss), int(elen))] = (sup, iseq)
-                            ci_e, co_e = self.genome.linear_to_chro(
-                                np.asarray([ss], np.int64)
-                            )
-                            k_e = (int(ci_e[0]), int(co_e[0]), elen)
-                            s0, p0 = indel_events.get(k_e, (0, iseq))
-                            indel_events[k_e] = (s0 + sup, p0)
-                    # record-carried events of BOTH ends also share: a
-                    # mate clipped at its partner's indel boundary gets
-                    # the event-crossing CIGAR (scan-2 explain_read over
-                    # the shared event table, core-indel.c)
-                    for (bb, rr) in ((pair[0], r1), (pair[1], r2)):
-                        ind = np.asarray(rr["indel"], np.int32)
-                        sel = np.flatnonzero(
-                            np.asarray(rr["mapped"], bool) & (ind != 0)
-                        )
-                        pos_a = np.asarray(rr["pos"], np.uint32)
-                        spl_a = np.asarray(rr["split"], np.int32)
-                        cl_a = np.asarray(rr.get("clip_l", np.zeros_like(ind)))
-                        for q in sel:
-                            # small side = last M base before the event
-                            ss = (
-                                int(pos_a[q]) + int(spl_a[q])
-                                - int(cl_a[q]) - 1
-                            )
-                            chunk_events.setdefault(
-                                (ss, int(ind[q])), (1, "")
-                            )
-                    for (bb, rr) in ((pair[0], r1), (pair[1], r2)):
-                        rescue_clipped_with_events(
-                            self.genome, bb, rr, chunk_events,
-                            max_mismatches=self.cfg.max_mismatches,
-                        )
-                    rescue_unmapped_mates(
-                        self.genome, pair[0], pair[1], r1, r2, self.cfg
-                    )
-                if junctions is not None:
-                    # scan-2 event sharing + chaining, mirroring the SE
-                    # path: table junctions (this chunk + earlier chunks +
-                    # -a annotations) rescue clipped/unmapped mates
-                    prelim = dict(getattr(self, "annot_junctions", None) or {})
-                    prelim.update(junctions)
-                    collect_junctions(r1, pair[0], self.genome, prelim)
-                    collect_junctions(r2, pair[1], self.genome, prelim)
-                    collect_seed_junctions(r1, self.genome, prelim,
-                                           seed_pending)
-                    collect_seed_junctions(r2, self.genome, prelim,
-                                           seed_pending)
-                    ev_l, ev_r, donor = junction_event_arrays(
-                        self.genome, prelim
-                    )
-                    self._ev_donor = donor
-                    r1 = self.rescue_with_events(pair[0], r1, ev_l, ev_r)
-                    r2 = self.rescue_with_events(pair[1], r2, ev_l, ev_r)
-                    m1 = self._reported_mask(r1)
-                    m2 = self._reported_mask(r2)
-                    # count_primary: chained rows are skipped by the final
-                    # collect_junctions below (their split/junc_gap are
-                    # stale), so the chain counts their primary junction
-                    # here — in the pre-chain frame, where the ci-M block
-                    # genuinely sits
-                    r1 = self.chain_clipped_junctions(
-                        pair[0], r1, junctions, events=prelim,
-                        count_primary=True, mask=m1,
-                    )
-                    r2 = self.chain_clipped_junctions(
-                        pair[1], r2, junctions, events=prelim,
-                        count_primary=True, mask=m2,
-                    )
-                    collect_junctions(r1, pair[0], self.genome, junctions,
-                                      mask=m1)
-                    collect_junctions(r2, pair[1], self.genome, junctions,
-                                      mask=m2)
-                if breakpoints is not None:
-                    from .fusion import (
-                        accumulate_breakpoints, detect_fusion_pairs,
-                    )
-
-                    for bb, rr in ((pair[0], r1), (pair[1], r2)):
-                        if "vk_pos" not in rr:
-                            continue
-                        pairs_f = detect_fusion_pairs(
-                            rr, bb.lengths, self.cfg.max_indel,
-                            batch=bb, genome=self.genome,
-                        )
-                        accumulate_breakpoints(breakpoints, pairs_f)
-                self._emit_sam_pe(writer, pair[0], pair[1], r1, r2, summary,
-                                  indel_events)
-                pair, state, chunk = nxt, nxt_state, chunk + 1
-        finally:
-            rd1.close()
-            rd2.close()
-            writer.close()
-            timing.set_chunk(-1)
-        if junctions is not None:
-            write_junction_bed(out_sam + ".junction.bed", junctions)
-        if breakpoints is not None:
-            from .fusion import write_breakpoints_vcf
-
-            write_breakpoints_vcf(
-                out_sam + ".breakpoints.vcf", self.genome, breakpoints
-            )
-        write_indel_vcf(out_sam + ".indel.vcf", self.genome, indel_events)
-        return summary
+        return self._align_chunks(out_sam, read_pair, (rd1, rd2), paired=True)
 
     def align_file(
         self, fastq_path: str, out_sam: str, chunk_reads: int = 1 << 20,
         reader=None,
     ) -> AlignSummary:
-        summary = AlignSummary()
         reader = reader if reader is not None else FastqReader(fastq_path)
+
+        def read():
+            batch = reader.next_batch(chunk_reads, pad_to=self.cfg.pad_read_len)
+            return None if batch is None else (batch,)
+
+        return self._align_chunks(out_sam, read, (reader,), paired=False)
+
+    def _align_chunks(self, out_sam: str, read, readers, paired: bool) -> AlignSummary:
+        """The chunk loop of align_file (paired False) and align_file_pe:
+        read() gives a chunk's batches, (batch,) or (mate 1, mate 2), or
+        None at the end.  Depth 1: chunk N+1 is read and submitted before
+        chunk N is collected, so its device work runs under chunk N's host
+        step.  Closes the readers and the writer, then writes the side
+        files: .junction.bed, .breakpoints.vcf, .indel.vcf."""
+        cfg = self.cfg
+        summary = AlignSummary()
+        tables = _ChunkTables(junctions={} if cfg.detect_junctions else None,
+                              breakpoints={} if cfg.all_junctions else None)
         writer = samio.make_writer(
-            out_sam,
-            self.genome.names,
-            [int(x) for x in self.genome.lengths],
-            sam_output=self.cfg.sam_output or out_sam.endswith(".sam"),
-            sort_by_coordinates=self.cfg.sort_by_coordinates,
-            rg_id=self.cfg.rg_id,
-            rg_extra=list(self.cfg.rg_extra) or None,
+            out_sam, self.genome.names, [int(x) for x in self.genome.lengths],
+            sam_output=cfg.sam_output or out_sam.endswith(".sam"),
+            sort_by_coordinates=cfg.sort_by_coordinates,
+            rg_id=cfg.rg_id, rg_extra=list(cfg.rg_extra) or None,
         )
-        junctions: dict | None = {} if self.cfg.detect_junctions else None
-        seed_pending: dict = {}
-        indel_events: dict = {}
-        breakpoints: dict | None = {} if self.cfg.all_junctions else None
+        submit = self.submit_batch_pe if paired else self.submit_batch
+        collect = self.collect_batch_pe if paired else self.collect_batch
+        step = self._host_step_pe if paired else self._host_step_se
         chunk = 0
         try:
             timing.set_chunk(chunk)
-            batch = reader.next_batch(chunk_reads, pad_to=self.cfg.pad_read_len)
-            state = self.submit_batch(batch) if batch is not None else None
-            while batch is not None:
-                # depth-1 chunk pipeline: read + submit chunk N+1 BEFORE
-                # collecting chunk N, so its device compute runs under this
-                # chunk's fetch + host postprocess + emit
+            cur = read()
+            state = submit(*cur) if cur is not None else None
+            while cur is not None:
                 timing.set_chunk(chunk + 1)
-                nxt = reader.next_batch(chunk_reads, pad_to=self.cfg.pad_read_len)
-                nxt_state = self.submit_batch(nxt) if nxt is not None else None
+                nxt = read()
+                nxt_state = submit(*nxt) if nxt is not None else None
                 timing.set_chunk(chunk)
-                res = self.collect_batch(state)
-                if junctions is None and "probe_kv" in res:
-                    # event-table indel placement: the reference derives
-                    # every indel CIGAR from a SHARED event found by its
-                    # banded DP (find_new_indels core-indel.c:1831); our
-                    # per-read min-mismatch split ties differently inside
-                    # homopolymers
-                    from .indelevent import propose_and_apply
-
-                    ev_new, ev_done = propose_and_apply(
-                        self.genome, batch, res, self.cfg,
-                        anchor_mism_limit=self.cfg.max_mismatches,
-                        index_gap=self.index.index_gap,
-                    )
-                    if ev_done:
-                        # these rows' events are recorded below; emitters
-                        # must not re-derive them from (pos, split)
-                        res["_events_done"] = set(ev_done)
-                    for (ss, elen), (sup, iseq) in ev_new.items():
-                        ci_e, co_e = self.genome.linear_to_chro(
-                            np.asarray([ss], np.int64)
-                        )
-                        k_e = (int(ci_e[0]), int(co_e[0]), elen)
-                        s0, p0 = indel_events.get(k_e, (0, iseq))
-                        indel_events[k_e] = (s0 + sup, p0)
-                    ov = refine_multi_indels(
-                        self.genome, batch, res, self.cfg.max_indel,
-                        self.vote_params, self.cfg.max_mismatches,
-                        self.cfg.min_votes,
-                    )
-                    if ov:
-                        cur = res.get("cigar_override") or {}
-                        cur.update(ov)
-                        res["cigar_override"] = cur
-                        res["mapped"] = np.asarray(res["mapped"], bool).copy()
-                        res["mapq"] = np.asarray(res["mapq"], np.int32).copy()
-                        res["mism"] = np.asarray(res["mism"], np.int32).copy()
-                        for i, (_c, mm, _nm) in ov.items():
-                            res["mapped"][i] = True
-                            res["mism"][i] = mm
-                            if res["mapq"][i] <= 0:
-                                res["mapq"][i] = self.cfg.mapq_unique // (1 + mm)
-                if junctions is None and self.cfg.max_indel > 16:
-                    # iteration three: long indels via soft-clip re-anchoring
-                    from .longindel import rescue_long_indels
-
-                    if not hasattr(self, "_ins_piles"):
-                        self._ins_piles = {}
-                    ov2, ev2, _ = rescue_long_indels(
-                        self.genome, batch, res, self.cfg.max_indel,
-                        piles=self._ins_piles,
-                    )
-                    if ov2:
-                        cur = res.get("cigar_override") or {}
-                        for i, v_ in ov2.items():
-                            cur.setdefault(i, v_)
-                        res["cigar_override"] = cur
-                        res["mism"] = np.asarray(res["mism"], np.int32).copy()
-                        for i, (_c, mm, _nm) in ov2.items():
-                            res["mism"][i] = mm
-                        for k, (sup, ins) in ev2.items():
-                            s0, p0 = indel_events.get(k, (0, ins))
-                            indel_events[k] = (s0 + sup, p0)
-                if junctions is not None:
-                    # scan-2 event-table sharing: junctions discovered in
-                    # this chunk (plus all earlier chunks, plus -a annotated
-                    # junctions) rescue reads without their own minor cluster
-                    prelim = dict(getattr(self, "annot_junctions", None) or {})
-                    prelim.update(junctions)
-                    collect_junctions(res, batch, self.genome, prelim)
-                    collect_seed_junctions(res, self.genome, prelim,
-                                           seed_pending)
-                    ev_l, ev_r, donor = junction_event_arrays(
-                        self.genome, prelim
-                    )
-                    self._ev_donor = donor
-                    res = self.rescue_with_events(batch, res, ev_l, ev_r)
-                    # chain lookups use the full event set (prelim) but
-                    # support counts land in the output table (junctions)
-                    res = self.chain_clipped_junctions(
-                        batch, res, junctions, events=prelim,
-                        mask=self._reported_mask(res),
-                    )
-                if breakpoints is not None and "vk_pos" in res:
-                    from .fusion import accumulate_breakpoints, detect_fusion_pairs
-
-                    pairs = detect_fusion_pairs(
-                        res, batch.lengths, self.cfg.max_indel,
-                        batch=batch, genome=self.genome,
-                    )
-                    accumulate_breakpoints(breakpoints, pairs)
-                self._emit_sam(writer, batch, res, summary,
-                               junctions=junctions, indel_events=indel_events)
-                batch, state, chunk = nxt, nxt_state, chunk + 1
+                step(writer, cur, collect(state), summary, tables)
+                cur, state, chunk = nxt, nxt_state, chunk + 1
         finally:
-            reader.close()
+            for r in readers:
+                r.close()
             writer.close()
             timing.set_chunk(-1)
-        if junctions is not None:
-            write_junction_bed(out_sam + ".junction.bed", junctions)
-        if breakpoints is not None:
-            from .fusion import write_breakpoints_vcf
-
-            write_breakpoints_vcf(
-                out_sam + ".breakpoints.vcf", self.genome, breakpoints
-            )
-        if getattr(self, "_ins_piles", None):
+        if tables.junctions is not None:
+            write_junction_bed(out_sam + ".junction.bed", tables.junctions)
+        if tables.breakpoints is not None:
+            write_breakpoints_vcf(out_sam + ".breakpoints.vcf", self.genome,
+                                  tables.breakpoints)
+        if tables.ins_piles:
             # cross-read reassembly of insertions longer than any single
             # read's clip (finalise_long_insertions, core-indel.c:4389)
-            from .longindel import assemble_insertion_piles
-
-            for k, (sup, ins) in assemble_insertion_piles(
-                self.genome, self._ins_piles, self.cfg.max_indel
-            ).items():
-                s0, p0 = indel_events.get(k, (0, ins))
-                indel_events[k] = (s0 + sup, p0)
-            self._ins_piles = {}
-        write_indel_vcf(out_sam + ".indel.vcf", self.genome, indel_events)
+            _count_events(tables.indel_events, assemble_insertion_piles(
+                self.genome, tables.ins_piles, cfg.max_indel).items())
+        write_indel_vcf(out_sam + ".indel.vcf", self.genome, tables.indel_events)
         return summary
+
+    def _host_step_se(self, writer, chunk, res: dict, summary: AlignSummary,
+                      t: _ChunkTables) -> None:
+        """One single-end chunk's host step after collect_batch, then its
+        records: without junction detection, event-table indel placement,
+        multi-indel refinement and (-I > 16) the long-indel rescue; with
+        it, the event-table rescue and junction chaining; the fusion
+        breakpoints (--allJunctions)."""
+        (batch,) = chunk
+        cfg = self.cfg
+        if t.junctions is None and "probe_kv" in res:
+            # event-table indel placement: the reference derives every
+            # indel CIGAR from a SHARED event found by its banded DP
+            # (find_new_indels core-indel.c:1831); our per-read
+            # min-mismatch split ties differently inside homopolymers
+            self._place_events(batch, res, t)
+            ov = refine_multi_indels(
+                self.genome, batch, res, cfg.max_indel, self.vote_params,
+                cfg.max_mismatches, cfg.min_votes,
+            )
+            if ov:
+                _merge_overrides(res, ov, keep_earlier=False)
+                res["mapped"] = np.asarray(res["mapped"], bool).copy()
+                res["mapq"] = np.asarray(res["mapq"], np.int32).copy()
+                for i, (_c, mm, _nm) in ov.items():
+                    res["mapped"][i] = True
+                    if res["mapq"][i] <= 0:
+                        res["mapq"][i] = cfg.mapq_unique // (1 + mm)
+        if t.junctions is None and cfg.max_indel > 16:
+            # iteration three: long indels via soft-clip re-anchoring
+            ov2, ev2, _ = rescue_long_indels(
+                self.genome, batch, res, cfg.max_indel, piles=t.ins_piles,
+            )
+            if ov2:
+                _merge_overrides(res, ov2, keep_earlier=True)
+                _count_events(t.indel_events, ev2.items())
+        if t.junctions is not None:
+            # scan-2 event-table sharing: junctions discovered in this
+            # chunk (plus all earlier chunks, plus -a annotated junctions)
+            # rescue reads without their own minor cluster
+            prelim, events = self._event_table(((batch, res),), t)
+            res = self.rescue_with_events(batch, res, *events)
+            # chain lookups use the full event set (prelim) but support
+            # counts land in the output table (junctions)
+            res = self.chain_clipped_junctions(
+                batch, res, t.junctions, events=prelim,
+                mask=self._reported_mask(res),
+            )
+        self._add_breakpoints(batch, res, t)
+        self._emit_sam(writer, batch, res, summary,
+                       junctions=t.junctions, indel_events=t.indel_events)
+
+    def _host_step_pe(self, writer, chunk, res, summary: AlignSummary,
+                      t: _ChunkTables) -> None:
+        """One paired chunk's host step after collect_batch_pe, then its
+        records: without junction detection, event-table indel placement
+        per end, the clipped mates' rescue against both ends' events and
+        the unmapped mates' rescue; with it, the event-table rescue,
+        junction chaining and the junction count per end; the fusion
+        breakpoints (--allJunctions)."""
+        (b1, b2), (r1, r2) = chunk, res
+        ends = ((b1, r1), (b2, r2))
+        if t.junctions is None:
+            # event-table indel placement per end (the single-end step's
+            # shared-event rule)
+            chunk_events: dict = {}
+            for bb, rr in ends:
+                if "probe_kv" in rr:
+                    for (ss, elen), v in self._place_events(bb, rr, t).items():
+                        chunk_events[(int(ss), int(elen))] = v
+            # record-carried events of BOTH ends also share: a mate clipped
+            # at its partner's indel boundary gets the event-crossing CIGAR
+            # (scan-2 explain_read over the shared event table, core-indel.c)
+            for _, rr in ends:
+                ind = np.asarray(rr["indel"], np.int32)
+                sel = np.flatnonzero(np.asarray(rr["mapped"], bool) & (ind != 0))
+                pos_a = np.asarray(rr["pos"], np.uint32)
+                spl_a = np.asarray(rr["split"], np.int32)
+                cl_a = np.asarray(rr.get("clip_l", np.zeros_like(ind)))
+                for q in sel:
+                    # small side = last M base before the event
+                    ss = int(pos_a[q]) + int(spl_a[q]) - int(cl_a[q]) - 1
+                    chunk_events.setdefault((ss, int(ind[q])), (1, ""))
+            for bb, rr in ends:
+                indelevent.rescue_clipped_with_events(
+                    self.genome, bb, rr, chunk_events,
+                    max_mismatches=self.cfg.max_mismatches,
+                )
+            indelevent.rescue_unmapped_mates(self.genome, b1, b2, r1, r2, self.cfg)
+        else:
+            # scan-2 event sharing + chaining, as the single-end step: table
+            # junctions (this chunk + earlier chunks + -a annotations)
+            # rescue clipped/unmapped mates
+            prelim, events = self._event_table(ends, t)
+            r1 = self.rescue_with_events(b1, r1, *events)
+            r2 = self.rescue_with_events(b2, r2, *events)
+            m1, m2 = self._reported_mask(r1), self._reported_mask(r2)
+            # count_primary: chained rows are skipped by the final
+            # collect_junctions below (their split/junc_gap are stale), so
+            # the chain counts their primary junction here — in the
+            # pre-chain frame, where the ci-M block genuinely sits
+            r1 = self.chain_clipped_junctions(
+                b1, r1, t.junctions, events=prelim, count_primary=True, mask=m1,
+            )
+            r2 = self.chain_clipped_junctions(
+                b2, r2, t.junctions, events=prelim, count_primary=True, mask=m2,
+            )
+            collect_junctions(r1, b1, self.genome, t.junctions, mask=m1)
+            collect_junctions(r2, b2, self.genome, t.junctions, mask=m2)
+        self._add_breakpoints(b1, r1, t)
+        self._add_breakpoints(b2, r2, t)
+        self._emit_sam_pe(writer, b1, b2, r1, r2, summary, t.indel_events)
+
+    def _place_events(self, batch, res: dict, t: _ChunkTables) -> dict:
+        """Event-table indel placement of one end (indelevent's
+        propose_and_apply); the events it places go to the indel table.
+        Returns them, {(small side, length): (reads, inserted bases)}."""
+        ev_new, ev_done = indelevent.propose_and_apply(
+            self.genome, batch, res, self.cfg,
+            anchor_mism_limit=self.cfg.max_mismatches,
+            index_gap=self.index.index_gap,
+        )
+        if ev_done:
+            # these rows' events are recorded here; emitters must not
+            # re-derive them from (pos, split)
+            res["_events_done"] = set(ev_done)
+        for (ss, elen), (sup, iseq) in ev_new.items():
+            ci, co = self.genome.linear_to_chro(np.asarray([ss], np.int64))
+            _count_events(t.indel_events,
+                          [((int(ci[0]), int(co[0]), elen), (sup, iseq))])
+        return ev_new
+
+    def _event_table(self, ends, t: _ChunkTables):
+        """The junction events of subjunc's rescue: -a's known junctions,
+        the table so far, this chunk's junctions and seed junctions of each
+        (batch, res) of ends.  Returns the events keyed as the table, and
+        their left and right arrays and donor strands for
+        rescue_with_events."""
+        prelim = dict(self.annot_junctions or {})
+        prelim.update(t.junctions)
+        for batch, res in ends:
+            collect_junctions(res, batch, self.genome, prelim)
+        for _batch, res in ends:
+            collect_seed_junctions(res, self.genome, prelim, t.seed_pending)
+        return prelim, junction_event_arrays(self.genome, prelim)
+
+    def _add_breakpoints(self, batch, res: dict, t: _ChunkTables) -> None:
+        """Fusion breakpoints of one end's results (--allJunctions)."""
+        if t.breakpoints is not None and "vk_pos" in res:
+            accumulate_breakpoints(t.breakpoints, detect_fusion_pairs(
+                res, batch.lengths, self.cfg.max_indel, batch=batch,
+                genome=self.genome,
+            ))
 
 
 def _calc_tlen_cigar(cigar: str, Ps: int, Pb: int, Lbig: int,
