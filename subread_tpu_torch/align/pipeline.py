@@ -7,8 +7,10 @@ junction split scans, the stored-candidate event seeds and the event-table
 rescue step) run as torch ops on the Aligner's device, with the hit gather
 in the CUDA kernel `ops.probe.probe_hits` on a card.  Each chunk is split
 into `batch_reads` sub-batches; `submit_batch`/`submit_batch_pe` queue
-every sub-batch's work and `collect_batch`/`collect_batch_pe` read the
-results back.
+every sub-batch's work (on a card on a stream of its own, replayed as CUDA
+graphs split at the kernel's launches, the results copied to the host
+behind it: `graphstep.StepGraphs`) and `collect_batch`/`collect_batch_pe`
+read the results back.
 
 align_file and align_file_pe share one chunk loop, `_align_chunks`, which
 queues chunk N+1 before it reads chunk N back, runs the chunk's host step
@@ -50,6 +52,7 @@ from ..ops.vote import (
 # set on one of its attributes (the benchmark's spans, a test's spy) runs
 from . import indelevent
 from .fusion import accumulate_breakpoints, detect_fusion_pairs, write_breakpoints_vcf
+from .graphstep import StepGraphs
 from .longindel import assemble_insertion_piles, rescue_long_indels
 
 # collect_batch hands the host the dict the JAX pipeline's collect_batch
@@ -506,6 +509,9 @@ class Aligner:
             ))
         with timing.span("index.upload"):
             self.dev_index = to_device(self.blocks, genome, self.device)
+        # the sub-batch steps submit_batch* queue: on a card on a stream of
+        # their own, replayed as CUDA graphs and copied to the host behind
+        self.step_graphs = StepGraphs()
 
     # --- device step -------------------------------------------------------
 
@@ -1222,8 +1228,10 @@ class Aligner:
 
     @timing.span("submit")
     def submit_batch(self, batch: ReadBatch):
-        """Upload and queue every sub-batch of a chunk; nothing here waits
-        for the device."""
+        """Upload and queue every sub-batch of a chunk, each step and the
+        copy of its results to the host through `step_graphs`; nothing here
+        waits for the device but a key's first step on a card, which it
+        records."""
         codes, ambig, lens, R = self._pad_batch(batch)
         ul = uniform_length(lens[:R])
         bs = self.cfg.batch_reads
@@ -1233,7 +1241,8 @@ class Aligner:
             with timing.span("submit.upload"):
                 dc, da, dl = self._upload_reads(codes[sl], ambig[sl], lens[sl])
             with timing.span("submit.launch"):
-                pending.append(self._device_align(dc, da, dl, uniform_len=ul))
+                pending.append(self.step_graphs.run(
+                    self._device_align, (dc, da, dl), uniform_len=ul))
         return pending, R, batch
 
     @timing.span("collect")
@@ -1246,7 +1255,7 @@ class Aligner:
         flags."""
         pending, R, batch = state
         keep = self.cfg.all_junctions
-        out = _merge_parts([_host_part(res, keep) for res in pending], R, 0)
+        out = _merge_parts([_host_part(res.get(), keep) for res in pending], R, 0)
         self._rescue_saturated(batch, out)
         return out
 
@@ -1320,8 +1329,8 @@ class Aligner:
 
     @timing.span("submit")
     def submit_batch_pe(self, b1: ReadBatch, b2: ReadBatch):
-        """Upload and queue every sub-batch of a chunk of pairs; nothing
-        here waits for the device."""
+        """Upload and queue every sub-batch of a chunk of pairs, as
+        submit_batch does."""
         c1, a1, l1, R = self._pad_batch(b1)
         c2, a2, l2, _ = self._pad_batch(b2)
         ul1, ul2 = uniform_length(l1[:R]), uniform_length(l2[:R])
@@ -1333,7 +1342,8 @@ class Aligner:
                 m1 = self._upload_reads(c1[sl], a1[sl], l1[sl])
                 m2 = self._upload_reads(c2[sl], a2[sl], l2[sl])
             with timing.span("submit.launch"):
-                pending.append(self._device_align_pe(*m1, *m2, ul1=ul1, ul2=ul2))
+                pending.append(self.step_graphs.run(
+                    self._device_align_pe, (*m1, *m2), ul1=ul1, ul2=ul2))
         return pending, R, b1, b2
 
     @timing.span("collect")
@@ -1346,8 +1356,9 @@ class Aligner:
         paired rescue."""
         pending, R, b1, b2 = state
         keep = self.cfg.all_junctions
+        pairs = [res.get() for res in pending]
         out1, out2 = (
-            _merge_parts([_host_part(pair[m], keep) for pair in pending], R,
+            _merge_parts([_host_part(pair[m], keep) for pair in pairs], R,
                          0xFFFFFFFF)
             for m in (0, 1)
         )

@@ -7,11 +7,16 @@ port computes the same values, bit for bit, with the dtype convention of
 copies, not imports: the JAX module imports JAX, which the machine with
 the card does not have.
 
-The hit gather is `ops.probe.probe_hits`, the port's CUDA kernel.
+The hit gather is `ops.probe.probe_hits`, the port's CUDA kernel, called
+through this module's attribute.  The host constants of the vote are made
+on the device once per value (`_const`), so that a step queues no
+host-to-device copy and a CUDA graph can record it (`align/graphstep.py`).
 """
 
 from __future__ import annotations
 
+import functools
+from contextvars import ContextVar
 from typing import NamedTuple
 
 import numpy as np
@@ -21,6 +26,36 @@ from ..device import SENTINEL, popcount32, u32
 from .probe import probe_hits
 
 KMER = 16
+
+# While a CUDA graph records a step (align/graphstep.py), the recorder
+# stands in for each probe_hits launch: it ends the graph there, so that
+# the launch itself stays out of every graph.
+launch_split: ContextVar = ContextVar("launch_split", default=None)
+
+
+def _gather(*args):
+    split = launch_split.get()
+    return probe_hits(*args) if split is None else split(*args)
+
+
+def _const(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """The host array a as a tensor on device, made once per value and
+    device and shared by every caller, which must not write to it.  Kept for
+    the life of the process: a recorded CUDA graph reads it by address."""
+    a = np.ascontiguousarray(a)
+    return _const_of(a.dtype.str, a.shape, a.tobytes(), torch.device(device))
+
+
+@functools.cache
+def _const_of(dtype: str, shape: tuple, data: bytes, device: torch.device):
+    a = np.frombuffer(data, dtype=dtype).reshape(shape).copy()
+    return torch.from_numpy(a).to(device)
+
+
+def _repeat_cols(a: torch.Tensor, n: int) -> torch.Tensor:
+    """a.repeat_interleave(n, dim=1) of a 2-D tensor, as a static-shape
+    expand: each column n times in a row."""
+    return a[:, :, None].expand(-1, -1, n).reshape(a.shape[0], a.shape[1] * n)
 
 
 class VoteParams(NamedTuple):
@@ -128,10 +163,10 @@ def probe_keys_static(codes: torch.Tensor, ambig: torch.Tensor,
     """Probe 16-mer keys at static offsets: (int64 [R, P] keys, bool [R, P]
     window ambiguity)."""
     dev = codes.device
-    cols = torch.from_numpy(
-        (offsets.astype(np.int64)[:, None] + np.arange(KMER)).reshape(-1)
-    ).to(dev)
-    sh = torch.from_numpy(_SH16).to(dev)
+    cols = _const(
+        (offsets.astype(np.int64)[:, None] + np.arange(KMER)).reshape(-1), dev
+    )
+    sh = _const(_SH16, dev)
     R, P = codes.shape[0], len(offsets)
     c = codes[:, cols].to(torch.int64).reshape(R, P, KMER)
     keys = (c << sh).sum(-1)
@@ -146,7 +181,7 @@ def rolling_keys(codes: torch.Tensor, ambig: torch.Tensor
     R, L = codes.shape
     pc = torch.nn.functional.pad(codes.to(torch.int64), (0, KMER - 1))
     pa = torch.nn.functional.pad(ambig.to(torch.uint8), (0, KMER - 1))
-    sh = torch.from_numpy(_SH16).to(codes.device)
+    sh = _const(_SH16, codes.device)
     keys = (pc.unfold(1, KMER, 1) << sh).sum(-1)
     wamb = pa.unfold(1, KMER, 1).amax(-1) != 0
     return keys, wamb
@@ -316,7 +351,7 @@ def probe_inputs(codes: torch.Tensor, ambig: torch.Tensor,
         params,
     )
     P0 = n_sub * gap
-    rev = torch.from_numpy(np.arange(2 * P0) >= P0).to(dev)[None, :]
+    rev = _const(np.arange(2 * P0) >= P0, dev)[None, :]
     if static_len is not None and static_len >= KMER:
         offs_f = static_offsets(static_len, params)
         extract_np = np.concatenate([offs_f, static_len - KMER - offs_f])
@@ -327,9 +362,7 @@ def probe_inputs(codes: torch.Tensor, ambig: torch.Tensor,
         # probe (probe kmer = raw for forward probes, revcomp for reverse)
         flip_req = torch.where(rev, keys != rck, keys != keys_raw)
         valid = ~wamb_p & (read_len[:, None] >= static_len)
-        own = torch.from_numpy(
-            np.concatenate([offs_f, offs_f]).astype(np.int32)
-        ).to(dev)
+        own = _const(np.concatenate([offs_f, offs_f]).astype(np.int32), dev)
     else:
         offsets_f, _ = subread_offsets(read_len, params, n_sub)
         extract = torch.cat(
@@ -379,7 +412,7 @@ def vote_batch(
     is_rev_p = np.arange(2 * P0) >= P0
     P = 2 * P0
     C0 = P * H
-    gather = lambda k, v, o, p, hh: probe_hits(
+    gather = lambda k, v, o, p, hh: _gather(
         k.contiguous(), v.contiguous(), o.contiguous(), p, bucket_start,
         comb_rows, sub_base, sub_lo, bucket_bits, sub_bits, search_steps, hh,
     )
@@ -388,14 +421,13 @@ def vote_batch(
     # static per-probe metadata: strand, own-scan subread id, arrival index
     sn_np = np.tile(np.repeat(np.arange(n_sub), gap), 2)
     pk_np = np.concatenate([np.arange(P0), np.arange(P0)])
-    meta = torch.from_numpy(
-        is_rev_p.astype(np.int64) << 12 | sn_np << 13 | pk_np << 19
-    ).to(dev)                                                       # [P]
+    meta_np = is_rev_p.astype(np.int64) << 12 | sn_np << 13 | pk_np << 19
+    meta = _const(meta_np, dev)                                     # [P]
     own_full = own.expand(R, P) if own.dim() == 1 else own
-    strand_full = torch.from_numpy(is_rev_p.astype(np.int64)).to(dev).expand(R, P)
-    off3 = own_full.repeat_interleave(H, dim=1)                     # [R, C0]
-    payload = off3.to(torch.int64) | meta.repeat_interleave(H)[None, :]
-    strand3 = strand_full.repeat_interleave(H, dim=1)
+    strand_full = _const(is_rev_p.astype(np.int64), dev).expand(R, P)
+    off3 = _repeat_cols(own_full, H)                                # [R, C0]
+    payload = off3.to(torch.int64) | _const(np.repeat(meta_np, H), dev)[None, :]
+    strand3 = _const(np.repeat(is_rev_p.astype(np.int64), H), dev).expand(R, C0)
 
     E = params.wide_slots
     trunc_w = None
@@ -409,11 +441,11 @@ def vote_batch(
         own_w = take_p(own_full).to(torch.int32)
         kv_w, trunc_ww = gather(take_p(keys), sel_trunc, take_p(flip_req), own_w, HW)
         trunc_w = trunc_ww.any(1) | (trunc.to(torch.int32).sum(1) > E)
-        off_w = own_w.repeat_interleave(HW, dim=1)
-        payload_w = off_w.to(torch.int64) | torch.gather(
-            meta.expand(R, P), 1, sel
-        ).repeat_interleave(HW, dim=1)
-        strand_w = take_p(strand_full).repeat_interleave(HW, dim=1)
+        off_w = _repeat_cols(own_w, HW)
+        payload_w = off_w.to(torch.int64) | _repeat_cols(
+            torch.gather(meta.expand(R, P), 1, sel), HW
+        )
+        strand_w = _repeat_cols(take_p(strand_full), HW)
         kv3 = torch.cat([kv3, kv_w], dim=1)
         payload = torch.cat([payload, payload_w], dim=1)
         strand3 = torch.cat([strand3, strand_w], dim=1)
