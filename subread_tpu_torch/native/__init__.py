@@ -13,7 +13,7 @@ parser (`fccount.cpp`, called by `quant.featurecounts` and
 `quant.device_count`) and exactSNP's BAM pileup (`snppile.cpp`, called by
 `quant.snp`; its entry point also declares its `argtypes` here).  One
 source is the port's own: the BAM record encoder (`bamrec.cpp`, through
-`format_bam_records`, called by `align.pipeline`).  The library is built
+`format_bam_records`, called by `align.pipeline` and `tools.cellcounts`).  The library is built
 into `build/native/` at the root of the checkout (listed in .gitignore),
 named by a hash of its sources and flags, never into the package
 directory.
@@ -93,7 +93,8 @@ def get_lib():
     ]
     lib.format_bam_records.restype = L
     lib.format_bam_records.argtypes = (
-        [I32, P, P, P, P, I32] + [P] * 17 + [I32, P, P, P, P, ctypes.c_int64, P]
+        [I32, P, P, P, P, I32] + [P] * 17 + [I32, P, P, P, I32, P, P, P, P, P,
+                                             ctypes.c_int64, P]
     )
     _LIB = lib
     return _LIB
@@ -191,6 +192,7 @@ def format_bam_records(
     hi: np.ndarray, nh: np.ndarray,
     skip: np.ndarray | None = None,
     cigars: dict[int, list[int]] | None = None,
+    ztags: list[tuple[str, np.ndarray, np.ndarray]] | None = None,
 ) -> tuple[np.ndarray, np.ndarray] | None:
     """Encode a chunk's BAM records (bamrec.cpp), one a row in row order
     but for the rows skip marks: (records, ends), the records as uint8 and
@@ -198,7 +200,10 @@ def format_bam_records(
     fixed part (ref_id, pos and next_pos 0-based, -1 for none) and those
     the emitters build the CIGAR from; cigars gives the CIGAR operations
     (u32 words) of chosen mapped rows.  HI/NH tags where nh > 0, NM on
-    mapped rows.  None when the library is missing or a row holds what
+    mapped rows (none where nm is None), then each string tag of ztags,
+    (name, values, lengths): row i's value is the first lengths[i] bytes
+    of values[i] (uint8 [n, width]), the tag left out where lengths[i] < 0.
+    None when the library is missing or a row holds what
     BamWriter.add_sam_fields refuses: the caller then packs the chunk in
     Python.  Columns of another length than names raise ValueError."""
     lib = get_lib()
@@ -209,7 +214,10 @@ def format_bam_records(
     c = lambda a: np.ascontiguousarray(a, dtype=np.int32)
     cols = [c(a) for a in (flags, ref_id, pos, mapq, next_ref, next_pos, tlen)]
     cols.append(np.ascontiguousarray(mapped, dtype=np.uint8))
-    cols += [c(a) for a in (indel, split, junc_gap, clip_l, clip_r, nm, hi, nh)]
+    cols += [c(a) for a in (indel, split, junc_gap, clip_l, clip_r)]
+    a_nm = None if nm is None else c(nm)
+    hi, nh = c(hi), c(nh)
+    z = [(t, np.ascontiguousarray(v, dtype=np.uint8), c(ln)) for t, v, ln in ztags or ()]
     skip = None if skip is None else np.ascontiguousarray(skip, dtype=np.uint8)
     rows = sorted(cigars or ())
     ov_row = np.asarray(rows, np.int32)
@@ -219,23 +227,31 @@ def format_bam_records(
     a_codes = np.ascontiguousarray(codes, dtype=np.uint8)
     a_quals = np.ascontiguousarray(quals, dtype=np.uint8)
     a_lens = c(lens)
-    per_row = [a_lens, *cols] + ([] if skip is None else [skip])
+    per_row = [a_lens, *cols, hi, nh] + [a for a in (a_nm, skip) if a is not None]
+    per_row += [ln for _, _, ln in z]
     if (a_codes.ndim != 2 or a_quals.shape != a_codes.shape
             or len(a_codes) != n or int(a_lens.max(initial=0)) > a_codes.shape[1]
             or any(len(a) != n for a in per_row)
+            or any(v.ndim != 2 or len(v) != n or len(t) != 2 for t, v, _ in z)
             or (rows and not 0 <= rows[0] <= rows[-1] < n)):
         raise ValueError("format_bam_records: columns that do not match the names")
     if name_blob.count(0) != n:
         return None     # a name holding a NUL: the Python packer's case
     cap = (n * (4 + 32 + 20 + 21) + len(name_blob) + 4 * len(ov_ops)
-           + 2 * int(a_lens.sum()) + 64)
+           + 2 * int(a_lens.sum()) + 64
+           + sum(n * 4 + int(np.maximum(ln, 0).sum()) for _, _, ln in z))
     out = np.empty(cap, np.uint8)
     ends = np.empty(n, np.int64)
     ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)
+    z_vals = (ctypes.c_void_p * max(len(z), 1))(*[ptr(v) for _, v, _ in z])
+    z_lens = (ctypes.c_void_p * max(len(z), 1))(*[ptr(ln) for _, _, ln in z])
+    z_width = np.asarray([v.shape[1] for _, v, _ in z] or [0], np.int32)
     written = lib.format_bam_records(
         n, name_blob, ptr(a_codes), ptr(a_quals), ptr(a_lens), a_codes.shape[1],
-        *[ptr(a) for a in cols], ptr(skip) if skip is not None else None,
+        *[ptr(a) for a in cols], ptr(a_nm) if a_nm is not None else None,
+        ptr(hi), ptr(nh), ptr(skip) if skip is not None else None,
         len(rows), ptr(ov_row), ptr(ov_off), ptr(ov_ops),
+        len(z), "".join(t for t, _, _ in z).encode(), z_vals, ptr(z_width), z_lens,
         ptr(out), cap, ptr(ends),
     )
     if written < 0:

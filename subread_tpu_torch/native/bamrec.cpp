@@ -4,7 +4,8 @@
 // BamWriter.add_sam_fields packs from the same record's SAM fields: bin 0,
 // the CIGAR as u32 operations, SEQ as 4-bit codes (reverse-complemented on
 // a mapped reverse-strand record), QUAL as phred bytes (reversed there),
-// and integer tags as type 'i' in the order HI, NH, NM.
+// integer tags as type 'i' in the order HI, NH, NM, then the string tags
+// given as columns (type 'Z'), in the order given.
 //
 // Build: part of the native library (native/__init__.py).
 
@@ -90,13 +91,19 @@ extern "C" long format_bam_records(
     const int32_t *tlen, const uint8_t *mapped,
     const int32_t *indel, const int32_t *split, const int32_t *junc_gap,
     const int32_t *clip_l, const int32_t *clip_r, const int32_t *nm,
-    // HI and NH tags where nh[i] > 0; NM on every mapped record
+    // HI and NH tags where nh[i] > 0; NM on every mapped record (none
+    // where nm is null)
     const int32_t *hi, const int32_t *nh,
     const uint8_t *skip,                               // may be null
     // rows whose CIGAR is given: ov_row ascending, row ov_row[k]'s
     // operations ov_ops[ov_off[k], ov_off[k+1])
     int32_t n_ov, const int32_t *ov_row, const int64_t *ov_off,
     const uint32_t *ov_ops,
+    // n_z string tags: tag k is named z_names[2k], z_names[2k+1]; row i's
+    // value is the z_lens[k][i] bytes at z_vals[k] + i * z_width[k], and a
+    // negative length leaves the tag out of that row
+    int32_t n_z, const char *z_names, const uint8_t *const *z_vals,
+    const int32_t *z_width, const int32_t *const *z_lens,
     uint8_t *out, int64_t outcap, int64_t *rec_end)
 {
     uint8_t *p = out;
@@ -121,6 +128,11 @@ extern "C" long format_bam_records(
             return -2;
         int64_t need = 4 + 32 + (int64_t)l_name + 4 * (5 + (g1 - g0))
             + (L + 1) / 2 + L + 21;
+        for (int32_t k = 0; k < n_z; k++) {
+            int32_t zl = z_lens[k][i];
+            if (zl > z_width[k]) return -2;
+            if (zl >= 0) need += 4 + zl;
+        }
         if (p + need > end) return -1;
 
         uint8_t *rec = p;
@@ -171,7 +183,19 @@ extern "C" long format_bam_records(
             p = put_tag(p, 'H', 'I', hi[i]);
             p = put_tag(p, 'N', 'H', nh[i]);
         }
-        if (is_mapped) p = put_tag(p, 'N', 'M', nm[i]);
+        if (is_mapped && nm) p = put_tag(p, 'N', 'M', nm[i]);
+        for (int32_t k = 0; k < n_z; k++) {
+            int32_t zl = z_lens[k][i];
+            if (zl < 0) continue;
+            const uint8_t *v = z_vals[k] + (int64_t)i * z_width[k];
+            if (memchr(v, 0, zl)) return -2;     // a Z value holds no NUL
+            p[0] = (uint8_t)z_names[2 * k];
+            p[1] = (uint8_t)z_names[2 * k + 1];
+            p[2] = 'Z';
+            memcpy(p + 3, v, zl);
+            p[3 + zl] = 0;
+            p += 4 + zl;
+        }
 
         // block_size and the fixed part
         uint8_t *f = put_i32(rec, (int32_t)(p - rec - 4));

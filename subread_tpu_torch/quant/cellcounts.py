@@ -1,5 +1,15 @@
 """Copy of `subread_tpu/quant/cellcounts.py`: the port imports nothing of the JAX package.
 
+Departures from the original, each for a whitelist of 10x Chromium v3's
+size (6,794,880 barcodes): `BatchBarcodeMatcher` rescues a barcode by
+looking up its single-base substitutions in the sorted whitelist, with no
+per-barcode dicts; `BatchCellCounter` packs (cell, gene, UMI) into a key
+whose fields are as wide as the whitelist, the gene list and the UMI need
+(two words where one does not hold them), where the original gave the
+cell 20 bits and let larger whitelist indices collide.  `CellAnnotation`
+builds the annotation's two views once; the counters and spans are the
+port's (`timing`).
+
 cellCounts: single-cell RNA-seq counting pipeline.
 
 Reference: cell-counts.c — barcode matching with hamming≤1 rescue
@@ -23,7 +33,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from .. import dna
+from .. import dna, timing
 
 MAX_UMI_LEN = 14  # cell-counts.c:26
 
@@ -447,12 +457,25 @@ def pack_codes_2bit(codes: np.ndarray) -> np.ndarray:
 
 
 class BatchBarcodeMatcher(BarcodeMatcher):
-    """BarcodeMatcher with a vectorised exact pass: packed barcode keys
-    against a sorted whitelist; only the (rare) inexact reads fall back to
-    the hamming<=1 python rescue."""
+    """BarcodeMatcher's rule, vectorised: packed barcode keys against the
+    sorted whitelist; a barcode with no exact hit looks up each of its
+    3 x barcode_len single-base substitutions the same way and takes the
+    whitelist entry when exactly one is there (BarcodeMatcher.match's
+    unique hamming-1 rescue; every whitelist entry within hamming 1 shares
+    a half with the barcode, so its half-keyed candidates hold them all).
+    Builds no per-barcode dicts.  exact_hits: the exact matches of the
+    last match_batch call."""
+
+    exact_hits = 0
 
     def __init__(self, whitelist: list[str]):
-        super().__init__(whitelist)
+        lens = {len(b) for b in whitelist}
+        if len(lens) != 1 or max(lens) > 16:
+            raise ValueError("cell barcodes must share one length of at most "
+                             "16 bases (they pack into 32 bits)")
+        self.barcode_len = lens.pop()
+        self.barcodes = list(whitelist)
+        self.half = self.barcode_len // 2
         m = np.full(256, 0, np.uint8)
         for i, b in enumerate(b"AGCT"):
             m[b] = i
@@ -463,19 +486,29 @@ class BatchBarcodeMatcher(BarcodeMatcher):
         self._wl_order = np.argsort(self._wl_keys)
         self._wl_sorted = self._wl_keys[self._wl_order]
 
+    def match(self, bc: str) -> int:
+        return int(self.match_batch(dna.encode(bc)[None, :])[0])
+
     def match_batch(self, bc_codes: np.ndarray) -> np.ndarray:
         """[n, barcode_len] 2-bit codes -> whitelist index or -1."""
         keys = pack_codes_2bit(bc_codes)
-        j = np.searchsorted(self._wl_sorted, keys)
-        j = np.clip(j, 0, len(self._wl_sorted) - 1)
-        hit = self._wl_sorted[j] == keys
+        srt = self._wl_sorted
+        j = np.searchsorted(srt, keys)
+        j = np.clip(j, 0, len(srt) - 1)
+        hit = srt[j] == keys
         out = np.where(hit, self._wl_order[j], -1).astype(np.int32)
+        self.exact_hits = int(hit.sum())
         miss = np.flatnonzero(~hit)
         if len(miss):
-            dec = "AGCT"
-            for i in miss:
-                bc = "".join(dec[c] for c in bc_codes[i])
-                out[i] = self.match(bc)
+            L = self.barcode_len
+            shift = 2 * (L - 1 - np.arange(L, dtype=np.uint32))
+            flips = (np.arange(1, 4, dtype=np.uint32)[:, None] << shift).ravel()
+            var = keys[miss, None] ^ flips[None, :]            # [M, 3L]
+            lo = np.searchsorted(srt, var, "left")
+            n_in = np.searchsorted(srt, var, "right") - lo
+            one = n_in.sum(axis=1) == 1
+            col = np.argmax(n_in[one] > 0, axis=1)
+            out[miss[one]] = self._wl_order[lo[one, col]]
         return out
 
 
@@ -548,6 +581,21 @@ class AnnotationWeights:
         return w
 
 
+class CellAnnotation:
+    """What cellCounts reads of an annotation, built once: its gene names,
+    the featureCounts interval view that assigns a read its gene
+    (`assign_genes_batch`), and the exon weights that rescore candidates
+    (`select_annotated_candidates`)."""
+
+    def __init__(self, ann, genome, chro_aliases=None):
+        from .featurecounts import FCOptions, FeatureCounter
+
+        self.ann = ann
+        self.gene_names = ann.gene_names
+        self.fcview = FeatureCounter(ann, FCOptions(), chro_aliases=chro_aliases)
+        self.weights = AnnotationWeights(ann, genome, chro_aliases=chro_aliases)
+
+
 def select_annotated_candidates(res, lengths, weights: AnnotationWeights,
                                 vote_diff: int = 2):
     """Re-pick each mapped read's reported alignment by the reference
@@ -592,6 +640,7 @@ def select_annotated_candidates(res, lengths, weights: AnnotationWeights,
     strand = np.asarray(res["strand"]).copy()
     strand[:R][take] = np.asarray(res["alt_strand"])[rows, best][take]
     res["strand"] = strand
+    timing.count("cellcounts.rescored", int(take.sum()))
     # a weight-resolved tie is unique in the reference's eyes (the
     # score sort leaves one top candidate)
     if "multi" in res:
@@ -610,13 +659,11 @@ def assign_genes_batch(fcview, chro_names, cidx: np.ndarray,
     chro_names; start/end are 1-based inclusive."""
     n = len(cidx)
     gene = np.full(n, -1, np.int32)
-    for ci_name in set(chro_names[c] for c in np.unique(cidx[mapped])):
-        ci = fcview.by_chrom.get(ci_name)
+    for c in np.unique(cidx[mapped]).tolist():
+        ci = fcview.by_chrom.get(chro_names[c])
         if ci is None:
             continue
-        rows = np.flatnonzero(
-            mapped & (np.asarray([chro_names[c] for c in cidx]) == ci_name)
-        ) if len(chro_names) > 1 else np.flatnonzero(mapped)
+        rows = np.flatnonzero(mapped & (cidx == c))
         if not len(rows):
             continue
         s, e = start[rows], end[rows]
@@ -650,12 +697,27 @@ def assign_genes_batch(fcview, chro_names, cidx: np.ndarray,
 
 
 class BatchCellCounter(CellCounter):
-    """CellCounter with packed-array accumulation: (cell, gene, umi)
-    triples packed into uint64, deduped at finalise time."""
+    """CellCounter with packed-array accumulation: each (cell, gene, UMI)
+    triple is one key, deduped at finalise time.  The key holds the UMI's
+    2 bits a base, the gene and the whitelist index in fields as wide as
+    umi_len, the gene list and the whitelist need, in one uint64 where
+    they fit and in two words (cell, gene and UMI) where they do not, so
+    no two triples share a key.  A (cell, gene)'s UMIs merge in order of
+    reads (descending), then of the UMI's 2-bit value (A < G < C < T);
+    text_order=True breaks those ties by the UMI's text (A < C < G < T),
+    as CellCounter's hamming1_umi_merge does."""
 
-    def __init__(self, matcher, gene_names, umi_len: int = 10):
+    def __init__(self, matcher, gene_names, umi_len: int = 10,
+                 text_order: bool = False):
         super().__init__(matcher, gene_names, umi_len=umi_len)
         self._packed: list[np.ndarray] = []
+        self.text_order = text_order
+        self._ub = 2 * self.umi_len
+        self._gb = max(len(gene_names) - 1, 1).bit_length()
+        cell_bits = max(len(matcher.barcodes) - 1, 1).bit_length()
+        self._wide = cell_bits + self._gb + self._ub > 64
+        for k in ("barcode_exact", "barcode_rescued", "umis", "umi_merged"):
+            self.stats[k] = 0
 
     def add_batch(self, r1_codes: np.ndarray, gene_idx: np.ndarray):
         """r1_codes [n, >= barcode_len+umi_len] 2-bit codes."""
@@ -664,7 +726,14 @@ class BatchCellCounter(CellCounter):
         bl = self.matcher.barcode_len
         cells = self.matcher.match_batch(r1_codes[:, :bl])
         okc = cells >= 0
-        self.stats["barcode_matched"] += int(okc.sum())
+        matched = int(okc.sum())
+        exact = getattr(self.matcher, "exact_hits", matched)
+        self.stats["barcode_matched"] += matched
+        self.stats["barcode_exact"] += exact
+        self.stats["barcode_rescued"] += matched - exact
+        timing.count("cellcounts.barcode_exact", exact)
+        timing.count("cellcounts.barcode_rescued", matched - exact)
+        timing.count("cellcounts.barcode_unmatched", n - matched)
         ok = okc & (gene_idx >= 0)
         self.stats["assigned"] += int(ok.sum())
         if not ok.any():
@@ -672,12 +741,26 @@ class BatchCellCounter(CellCounter):
         umi = pack_codes_2bit(
             r1_codes[ok, bl : bl + self.umi_len]
         ).astype(np.uint64)
-        packed = (
-            (cells[ok].astype(np.uint64) << np.uint64(44))
-            | (gene_idx[ok].astype(np.uint64) << np.uint64(24))
-            | umi
-        )
+        lo = (gene_idx[ok].astype(np.uint64) << np.uint64(self._ub)) | umi
+        cell = cells[ok].astype(np.uint64)
+        if self._wide:
+            packed = np.empty(len(lo), [("cell", np.uint64), ("lo", np.uint64)])
+            packed["cell"], packed["lo"] = cell, lo
+        else:
+            packed = (cell << np.uint64(self._gb + self._ub)) | lo
         self._packed.append(packed)
+
+    def _fields(self, keys: np.ndarray):
+        """Keys -> (cell, gene, UMI) as int64, int64, uint64."""
+        if keys.dtype.names:
+            cell, lo = keys["cell"].astype(np.int64), keys["lo"]
+        else:
+            w = np.uint64(self._gb + self._ub)
+            cell = (keys >> w).astype(np.int64)
+            lo = keys & ((np.uint64(1) << w) - np.uint64(1))
+        ub = np.uint64(self._ub)
+        return (cell, (lo >> ub).astype(np.int64),
+                lo & ((np.uint64(1) << ub) - np.uint64(1)))
 
     def finalise(self):
         """Array-native finalise: unique (cell,gene,umi) triples, per-group
@@ -687,15 +770,13 @@ class BatchCellCounter(CellCounter):
             dec = "AGCT"
             for arr in self._packed:
                 uniq, counts = np.unique(arr, return_counts=True)
-                for u64, n in zip(uniq, counts):
-                    c = int(u64 >> np.uint64(44))
-                    g = int((u64 >> np.uint64(24)) & np.uint64((1 << 20) - 1))
-                    u = int(u64 & np.uint64((1 << 24) - 1))
+                for c, g, u, n in zip(*self._fields(uniq), counts):
+                    u = int(u)
                     us = "".join(
                         dec[(u >> (2 * (self.umi_len - 1 - j))) & 3]
                         for j in range(self.umi_len)
                     )
-                    d = self.table.setdefault((c, g), {})
+                    d = self.table.setdefault((int(c), int(g)), {})
                     d[us] = d.get(us, 0) + int(n)
             self._packed = []
             return super().finalise()
@@ -703,17 +784,25 @@ class BatchCellCounter(CellCounter):
             return np.zeros((0, 3), np.int64).reshape(-1, 3), []
         allp = np.concatenate(self._packed)
         uniq, counts = np.unique(allp, return_counts=True)
-        cg = (uniq >> np.uint64(24)).astype(np.int64)   # cell<<20 | gene
-        starts = np.flatnonzero(np.concatenate(([True], cg[1:] != cg[:-1])))
-        ends = np.concatenate((starts[1:], [len(cg)]))
+        cell, gene, umi = self._fields(uniq)
+        new = np.concatenate(([True], (cell[1:] != cell[:-1])
+                              | (gene[1:] != gene[:-1])))
+        starts = np.flatnonzero(new)
+        ends = np.concatenate((starts[1:], [len(uniq)]))
         sizes = ends - starts
         n_umis = sizes.copy()
+        if self.text_order:
+            # A G C T -> A C G T: swap the codes 1 and 2 of every base
+            d = (umi ^ (umi >> np.uint64(1))) & np.uint64(0x5555555555555555)
+            umi_order = umi ^ (d | (d << np.uint64(1)))
+        else:
+            umi_order = umi
         # hamming<=1 merge only in multi-UMI groups (the rare case)
         for gi in np.flatnonzero(sizes > 1):
             lo, hi = int(starts[gi]), int(ends[gi])
-            us = uniq[lo:hi] & np.uint64((1 << 24) - 1)
+            us = umi[lo:hi]
             cs = counts[lo:hi]
-            order = np.lexsort((us, -cs))
+            order = np.lexsort((umi_order[lo:hi], -cs))
             kept = []
             for i in order:
                 u = int(us[i])
@@ -729,13 +818,16 @@ class BatchCellCounter(CellCounter):
                 if not merged:
                     kept.append(u)
             n_umis[gi] = len(kept)
-        cells_all = (cg[starts] >> 20).astype(np.int64)
-        genes_all = (cg[starts] & ((1 << 20) - 1)).astype(np.int64)
-        cells = sorted(set(cells_all.tolist()))
-        rank = {c: i for i, c in enumerate(cells)}
+        self.stats["umis"] += len(uniq)
+        self.stats["umi_merged"] += int(len(uniq) - n_umis.sum())
+        timing.count("cellcounts.umis", len(uniq))
+        timing.count("cellcounts.umi_groups_merged", int(len(uniq) - n_umis.sum()))
+        cells_all = cell[starts]
+        genes_all = gene[starts]
+        cells, rank = np.unique(cells_all, return_inverse=True)
         entries = np.stack([
             genes_all,
-            np.asarray([rank[c] for c in cells_all], np.int64),
+            rank.astype(np.int64),
             n_umis.astype(np.int64),
         ], axis=1)
-        return entries, cells
+        return entries, cells.tolist()
